@@ -1,0 +1,141 @@
+"""ResNet trunks: ResNet-50 conv1..layer3 (key encoder) and ResNet-18
+conv1..layer3 with extra input channels (value encoder).
+
+Counterpart of xmem2_tpu/models/resnet.py (reference model/resnet.py:46-152).
+Submodule names follow the reference state dict, e.g.
+`layer1.0.conv1.weight`, `layer1.0.downsample.0` (conv) / `.1` (bn); the key
+encoder names its layer1 `res2` (reference modules.py:162).
+"""
+
+import torch
+from torch import nn
+
+from xmem2_tpu_torch.nn import functional as XF
+
+
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d that casts its input to the weight's dtype (the compute
+    dtype), as the JAX package's conv2d(dtype=...) does."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return super().forward(x.to(self.weight.dtype))
+
+
+class BatchNorm2d(nn.Module):
+    """Frozen inference batch norm, computed in float32. Holds the reference
+    state-dict names (weight, bias, running_mean, running_var); the
+    checkpoint's num_batches_tracked counters are dropped on load."""
+
+    def __init__(self, c: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(c))
+        self.bias = nn.Parameter(torch.zeros(c))
+        self.register_buffer('running_mean', torch.zeros(c))
+        self.register_buffer('running_var', torch.ones(c))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return XF.batch_norm(x, self.weight, self.bias, self.running_mean,
+                             self.running_var)
+
+
+def conv3x3(cin, cout, stride=1):
+    return Conv2d(cin, cout, 3, stride=stride, padding=1, bias=False)
+
+
+class BasicBlock(nn.Module):
+    """ResNet-18 block (reference model/resnet.py:46-75)."""
+
+    def __init__(self, cin, cout, stride=1):
+        super().__init__()
+        self.conv1 = conv3x3(cin, cout, stride)
+        self.bn1 = BatchNorm2d(cout)
+        self.conv2 = conv3x3(cout, cout)
+        self.bn2 = BatchNorm2d(cout)
+        self.downsample = None
+        if stride != 1 or cin != cout:
+            self.downsample = nn.Sequential(
+                Conv2d(cin, cout, 1, stride=stride, bias=False),
+                BatchNorm2d(cout))
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = self.bn2(self.conv2(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + residual)
+
+
+class Bottleneck(nn.Module):
+    """ResNet-50 block (reference model/resnet.py:78-114)."""
+    expansion = 4
+
+    def __init__(self, cin, planes, stride=1):
+        super().__init__()
+        cout = planes * self.expansion
+        self.conv1 = Conv2d(cin, planes, 1, bias=False)
+        self.bn1 = BatchNorm2d(planes)
+        self.conv2 = conv3x3(planes, planes, stride)
+        self.bn2 = BatchNorm2d(planes)
+        self.conv3 = Conv2d(planes, cout, 1, bias=False)
+        self.bn3 = BatchNorm2d(cout)
+        self.downsample = None
+        if stride != 1 or cin != cout:
+            self.downsample = nn.Sequential(
+                Conv2d(cin, cout, 1, stride=stride, bias=False),
+                BatchNorm2d(cout))
+
+    def forward(self, x):
+        out = torch.relu(self.bn1(self.conv1(x)))
+        out = torch.relu(self.bn2(self.conv2(out)))
+        out = self.bn3(self.conv3(out))
+        residual = x if self.downsample is None else self.downsample(x)
+        return torch.relu(out + residual)
+
+
+def make_layer(block, cin, planes, blocks, stride):
+    cout = planes * getattr(block, 'expansion', 1)
+    layers = [block(cin, planes, stride)]
+    layers += [block(cout, planes) for _ in range(1, blocks)]
+    return nn.Sequential(*layers)
+
+
+class Stem(nn.Module):
+    """conv1 (7x7 s2) + bn + relu + maxpool (3x3 s2), shared by both trunks
+    (the reference value encoder pools before its relu; max and relu
+    commute)."""
+
+    def __init__(self, cin):
+        super().__init__()
+        self.conv1 = Conv2d(cin, 64, 7, stride=2, padding=3, bias=False)
+        self.bn1 = BatchNorm2d(64)
+
+    def stem(self, x):
+        return XF.max_pool(torch.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+
+
+class ResNet50Trunk(Stem):
+    """Key encoder trunk: returns (f4, f8, f16) = (res2, layer2, layer3)."""
+
+    def __init__(self):
+        super().__init__(3)
+        self.res2 = make_layer(Bottleneck, 64, 64, 3, 1)
+        self.layer2 = make_layer(Bottleneck, 256, 128, 4, 2)
+        self.layer3 = make_layer(Bottleneck, 512, 256, 6, 2)
+
+    def forward(self, x):
+        f4 = self.res2(self.stem(x))
+        f8 = self.layer2(f4)
+        f16 = self.layer3(f8)
+        return f4, f8, f16
+
+
+class ResNet18Trunk(Stem):
+    """Value encoder trunk: layer3 features (1/16, 256 channels)."""
+
+    def __init__(self, cin):
+        super().__init__(cin)
+        self.layer1 = make_layer(BasicBlock, 64, 64, 2, 1)
+        self.layer2 = make_layer(BasicBlock, 64, 128, 2, 2)
+        self.layer3 = make_layer(BasicBlock, 128, 256, 2, 2)
+
+    def trunk(self, x):
+        return self.layer3(self.layer2(self.layer1(self.stem(x))))

@@ -1,0 +1,372 @@
+"""The memory readout hot path: two hand-written CUDA kernels and their
+plain PyTorch versions.
+
+Counterpart of xmem2_tpu/ops/readout_kernel.py. The per-frame hot op
+(reference model/memory_util.py:7-80 + inference/memory_manager.py:61-190) is
+the similarity between the query frame and every memory slot, a top-k softmax
+per object group, the value readout and the usage count. Split of work:
+
+  1. A plain f32 product computes the similarity [P, N] of each memory
+     segment (get_similarity_padded, no padding).
+  2. K2, `block_topk_candidates` (csrc/block_topk.cu), extracts the exact
+     top-k values of every 512-slot block; merge rounds of the same kernel
+     reduce them to the k global values, which give each row's softmax stats
+     in closed form: the row max, the k-th value tau and 1/Z.
+  3. K1, `topk_readout` and `topk_usage` (csrc/topk_readout.cu), stream the
+     similarity and values once per segment with those shared stats:
+     threshold mask, exp, normalisation, per-object value product, and the
+     group-0 usage sum. No dense affinity is ever stored.
+
+Each wrapper takes its plain version for a tensor on the CPU and its kernel
+for a tensor on a CUDA device, and counts the launches of its kernel in
+LAUNCHES. There is no fallback from a CUDA tensor to the plain version.
+
+Ties at the k-th value: like the JAX kernels, the streamed pass includes the
+WHOLE tied set and folds the tie count into Z (_tie_corrected_z), so weights
+sum to exactly 1; the dense reference (similarity.softmax_w_top) keeps an
+arbitrary k-subset of the tie.
+"""
+
+import ctypes
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from xmem2_tpu_torch.ops import cuda_build
+from xmem2_tpu_torch.ops.similarity import (
+    NEG_INF, get_similarity_padded, top_k_values)
+
+BN = 512  # candidate block width: part of block_topk_candidates' contract
+
+# kernel launches of each wrapper since the last reset_launch_counts()
+LAUNCHES = {'block_topk_candidates': 0, 'topk_readout': 0, 'topk_usage': 0}
+
+
+def reset_launch_counts():
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _check_cuda(name: str, device: torch.device, **tensors):
+    """Device, dtype and contiguity checks before a raw pointer is handed to
+    a kernel."""
+    for key, (t, dtype) in tensors.items():
+        if t.device != device:
+            raise ValueError(f'{name}: {key} is on {t.device}, expected {device}')
+        if t.dtype not in dtype:
+            raise TypeError(f'{name}: {key} has dtype {t.dtype}, expected '
+                            f'one of {dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: {key} must be contiguous')
+
+
+def _raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f'{name}: kernel launch failed with CUDA error {rc}')
+
+
+# ---------------------------------------------------------------------------
+# K2: per-block exact top-k candidates
+# ---------------------------------------------------------------------------
+
+def block_topk_candidates_plain(sim: torch.Tensor, valid: torch.Tensor,
+                                k: int) -> torch.Tensor:
+    """Plain version of K2: the same k iterative max-extractions with tie
+    multiplicities as the Pallas kernel, on whole tensors.
+
+    sim [P, N]; valid [G, N] bool -> [G, P, nb*k], nb = ceil(N / BN)."""
+    p, n = sim.shape
+    g = valid.shape[0]
+    nb = -(-n // BN)
+    pad = nb * BN - n
+    s = torch.nn.functional.pad(sim, (0, pad), value=-torch.inf)
+    v = torch.nn.functional.pad(valid, (0, pad), value=False)
+    rem = torch.where(v[:, None, :], s[None], -torch.inf)      # [G, P, nb*BN]
+    rem = rem.reshape(g, p, nb, BN)
+    out = torch.full((g, p, nb, k), -torch.inf, dtype=torch.float32,
+                     device=sim.device)
+    js = torch.arange(k, device=sim.device)
+    cum = torch.zeros((g, p, nb, 1), dtype=torch.int64, device=sim.device)
+    for _ in range(k):
+        m = torch.amax(rem, dim=-1, keepdim=True)
+        hit = rem == m
+        cnt = hit.sum(dim=-1, keepdim=True)
+        out = torch.where((js >= cum) & (js < cum + cnt), m, out)
+        rem = torch.where(hit, -torch.inf, rem)
+        cum = cum + cnt
+    return out.reshape(g, p, nb * k)
+
+
+def block_topk_candidates(sim: torch.Tensor, valid: torch.Tensor,
+                          k: int) -> torch.Tensor:
+    """Per-512-block exact top-k values for every group (K2).
+
+    sim [P, N] f32; valid [G, N] bool -> candidates [G, P, nb*k] with
+    nb = ceil(N / BN). The global top-k over N equals the top-k over these
+    candidates. k <= BN."""
+    if not 0 < k <= BN:
+        raise ValueError(f'block_topk_candidates: k={k} outside (0, {BN}]')
+    if sim.device.type == 'cpu':
+        return block_topk_candidates_plain(sim, valid, k)
+    _check_cuda('block_topk_candidates', sim.device,
+                sim=(sim, (torch.float32,)), valid=(valid, (torch.bool,)))
+    p, n = sim.shape
+    g = valid.shape[0]
+    if valid.shape[1] != n:
+        raise ValueError('block_topk_candidates: valid and sim widths differ')
+    nb = -(-n // BN)
+    out = torch.empty((g, p, nb * k), dtype=torch.float32, device=sim.device)
+    lib = cuda_build.library('block_topk')
+    lib.block_topk_launch.restype = ctypes.c_int
+    rc = lib.block_topk_launch(_ptr(sim), _ptr(valid), _ptr(out),
+                               ctypes.c_int(p), ctypes.c_int(n),
+                               ctypes.c_int(g), ctypes.c_int(k), _stream(sim))
+    _raise_on(rc, 'block_topk_candidates')
+    LAUNCHES['block_topk_candidates'] += 1
+    return out
+
+
+# ---------------------------------------------------------------------------
+# softmax stats: candidates -> (tau, rmax, 1/Z)
+# ---------------------------------------------------------------------------
+
+def _tie_corrected_z(z, vals, tau, rmax, sims, valids):
+    """Fold boundary ties into the softmax normalizer.
+
+    The streaming pass includes EVERY entry with sim >= tau, so when ties at
+    the k-th value extend past the k candidate slots, Z from the k candidates
+    alone under-counts. Count the tied entries across all segments, subtract
+    the ones inside the candidate list and add the difference's mass to Z.
+    Without boundary ties the correction is exactly zero.
+
+    z/tau/rmax [G, P]; vals [G, P, k]; sims list of [P, N]; valids [G, N]."""
+    cnt_in_k = torch.sum(vals == tau[..., None], dim=-1)          # [G, P]
+    cnt_total = torch.zeros_like(cnt_in_k)
+    for sim, valid in zip(sims, valids):
+        for gi in range(tau.shape[0]):
+            eq = (sim == tau[gi][:, None]) & valid[gi][None, :]
+            cnt_total[gi] += torch.sum(eq, dim=-1)
+    # -inf tau/rmax only occur for under-full groups, where the correction
+    # must vanish (and exp(-inf - -inf) would be nan)
+    finite = torch.isfinite(tau) & torch.isfinite(rmax)
+    tie_w = torch.where(finite, torch.exp(tau - rmax), torch.zeros_like(tau))
+    return z + (cnt_total - cnt_in_k).to(z.dtype) * tie_w
+
+
+def _stats_from_vals(vals, sims, valids):
+    rmax = vals[..., 0]
+    z = torch.sum(torch.exp(vals - rmax[..., None]), dim=-1)
+    tau = vals[..., -1]
+    z = _tie_corrected_z(z, vals, tau, rmax, sims, valids)
+    return (tau.T.contiguous(), rmax.T.contiguous(), (1.0 / z).T.contiguous())
+
+
+def _topk_stats_fused(sims: Sequence[torch.Tensor],
+                      valids: Sequence[torch.Tensor], top_k: int,
+                      candidates=block_topk_candidates):
+    """tau / rmax / 1/Z, each [P, G], through K2 with its merge rounds.
+
+    Widths count each segment padded to the block width, as the JAX package
+    does (its similarity is emitted at tile shape), so candidate arrays have
+    the same shapes in both packages. Each merge round maps width M to
+    ceil(M/BN)*k; the final single-block round leaves the k values sorted
+    descending. For k > BN/2 the width stops shrinking: use the sort path.
+    `candidates` is K2's wrapper; chip_smoke.py passes its plain version to
+    hold the kernel's stats against it on the card."""
+    g = valids[0].shape[0]
+    total_n = sum(_round_up(s.shape[-1], BN) for s in sims)
+    k = min(top_k, total_n)
+    if k > BN // 2:
+        return _topk_stats(sims, valids, top_k)
+
+    cands = [candidates(sim, valid, min(k, _round_up(sim.shape[-1], BN)))
+             for sim, valid in zip(sims, valids)]
+    merged = torch.cat(cands, dim=-1)                        # [G, P, sum]
+    while True:
+        ones = torch.ones((1, merged.shape[-1]), dtype=torch.bool,
+                          device=merged.device)
+        merged = torch.stack([
+            candidates(merged[gi].contiguous(), ones, k)[0]
+            for gi in range(g)])                             # [G, P, nb*k]
+        if merged.shape[-1] == k:
+            break
+    return _stats_from_vals(merged, sims, valids)
+
+
+def _topk_stats(sims: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
+                top_k: int):
+    """Sort-path stats (k > BN/2). Invalid and padding slots hold NEG_INF, as
+    in the JAX package; each segment is padded to the block width."""
+    g = valids[0].shape[0]
+    total_n = sum(_round_up(s.shape[-1], BN) for s in sims)
+    k = min(top_k, total_n)
+    vals_g = []
+    for gi in range(g):
+        cands = []
+        for sim, valid in zip(sims, valids):
+            n = sim.shape[-1]
+            simg = torch.where(valid[gi][None, :], sim,
+                               torch.full_like(sim, NEG_INF))
+            simg = torch.nn.functional.pad(simg, (0, _round_up(n, BN) - n),
+                                           value=NEG_INF)
+            cands.append(top_k_values(simg, min(k, simg.shape[-1])))
+        merged = torch.cat(cands, dim=-1)
+        vals_g.append(torch.topk(merged, k, dim=-1).values)
+    return _stats_from_vals(torch.stack(vals_g), sims, valids)
+
+
+# ---------------------------------------------------------------------------
+# K1: streamed top-k readout and group-0 usage
+# ---------------------------------------------------------------------------
+
+def _weights(sim, valid_g, tau_g, rmax_g, invz_g):
+    """w[p, n] = exp(sim - rmax) * invz where sim >= tau and the slot is
+    valid, else an exact 0 (the gate sits inside the exp)."""
+    keep = (sim >= tau_g[:, None]) & valid_g[None, :]
+    w = torch.exp(sim - rmax_g[:, None]) * invz_g[:, None]
+    return torch.where(keep, w, torch.zeros_like(w))
+
+
+def topk_readout_plain(sim, values, valid, tau, rmax, invz,
+                       group_ids: Tuple[int, ...]) -> torch.Tensor:
+    """Plain version of the readout kernel: [O, P, Cv] float32."""
+    aff = {g: _weights(sim, valid[g], tau[:, g], rmax[:, g], invz[:, g])
+           for g in sorted(set(group_ids))}
+    outs = []
+    for o, g in enumerate(group_ids):
+        a = aff[g]
+        if values.dtype == torch.bfloat16:
+            a = a.to(torch.bfloat16).float()   # bf16 affinity, f32 accumulate
+        outs.append(a @ values[o].float())
+    return torch.stack(outs)
+
+
+def topk_usage_plain(sim, valid, tau, rmax, invz) -> torch.Tensor:
+    """Plain version of the usage kernel: group-0 usage [N] float32."""
+    return _weights(sim, valid[0], tau[:, 0], rmax[:, 0], invz[:, 0]).sum(0)
+
+
+def topk_readout(sim: torch.Tensor, values: torch.Tensor, valid: torch.Tensor,
+                 tau: torch.Tensor, rmax: torch.Tensor, invz: torch.Tensor,
+                 group_ids: Tuple[int, ...]) -> torch.Tensor:
+    """One segment's readout (K1): sim [P, N] f32, values [O, N, Cv] f32 or
+    bf16, valid [G, N] bool, tau/rmax/invz [P, G] f32 -> [O, P, Cv] f32."""
+    if sim.device.type == 'cpu':
+        return topk_readout_plain(sim, values, valid, tau, rmax, invz,
+                                  group_ids)
+    f32 = (torch.float32,)
+    _check_cuda('topk_readout', sim.device, sim=(sim, f32),
+                values=(values, (torch.float32, torch.bfloat16)),
+                valid=(valid, (torch.bool,)), tau=(tau, f32),
+                rmax=(rmax, f32), invz=(invz, f32))
+    p, n = sim.shape
+    o, nv, cv = values.shape
+    g = valid.shape[0]
+    if nv != n or valid.shape[1] != n or len(group_ids) != o:
+        raise ValueError('topk_readout: sim, values, valid and group_ids '
+                         'disagree in shape')
+    if tau.shape != (p, g) or rmax.shape != (p, g) or invz.shape != (p, g):
+        raise ValueError('topk_readout: stats must be [P, G]')
+    if max(group_ids) >= g or o > 64:
+        raise ValueError('topk_readout: group id out of range or > 64 objects')
+    out = torch.empty((o, p, cv), dtype=torch.float32, device=sim.device)
+    gids = (ctypes.c_int * o)(*group_ids)
+    lib = cuda_build.library('topk_readout')
+    lib.topk_readout_launch.restype = ctypes.c_int
+    rc = lib.topk_readout_launch(
+        _ptr(sim), _ptr(values), ctypes.c_int(values.dtype == torch.bfloat16),
+        _ptr(valid), _ptr(tau), _ptr(rmax), _ptr(invz), gids, ctypes.c_int(o),
+        _ptr(out), ctypes.c_int(p), ctypes.c_int(n), ctypes.c_int(cv),
+        ctypes.c_int(g), _stream(sim))
+    _raise_on(rc, 'topk_readout')
+    LAUNCHES['topk_readout'] += 1
+    return out
+
+
+def topk_usage(sim: torch.Tensor, valid: torch.Tensor, tau: torch.Tensor,
+               rmax: torch.Tensor, invz: torch.Tensor) -> torch.Tensor:
+    """One segment's group-0 usage (K1's reduction over queries):
+    usage[n] = sum_p w_0[p, n] -> [N] f32."""
+    if sim.device.type == 'cpu':
+        return topk_usage_plain(sim, valid, tau, rmax, invz)
+    f32 = (torch.float32,)
+    _check_cuda('topk_usage', sim.device, sim=(sim, f32),
+                valid=(valid, (torch.bool,)), tau=(tau, f32),
+                rmax=(rmax, f32), invz=(invz, f32))
+    p, n = sim.shape
+    g = valid.shape[0]
+    if valid.shape[1] != n or tau.shape != (p, g) or rmax.shape != (p, g) \
+            or invz.shape != (p, g):
+        raise ValueError('topk_usage: shapes disagree')
+    usage = torch.empty((n,), dtype=torch.float32, device=sim.device)
+    lib = cuda_build.library('topk_readout')
+    lib.topk_usage_launch.restype = ctypes.c_int
+    rc = lib.topk_usage_launch(_ptr(sim), _ptr(valid), _ptr(tau), _ptr(rmax),
+                               _ptr(invz), _ptr(usage), ctypes.c_int(p),
+                               ctypes.c_int(n), ctypes.c_int(g), _stream(sim))
+    _raise_on(rc, 'topk_usage')
+    LAUNCHES['topk_usage'] += 1
+    return usage
+
+
+# ---------------------------------------------------------------------------
+# entry points
+# ---------------------------------------------------------------------------
+
+def fused_topk_readout_multi(
+    segments: Sequence[Tuple[torch.Tensor, Optional[torch.Tensor],
+                             torch.Tensor, torch.Tensor]],
+    qk: torch.Tensor, qe: Optional[torch.Tensor],
+    group_ids: Tuple[int, ...], top_k: int,
+    want_usage: Optional[Sequence[bool]] = None,
+) -> Tuple[torch.Tensor, List[Optional[torch.Tensor]]]:
+    """Readout over several memory segments sharing one global top-k.
+
+    segments: per store, (mk [N, Ck], ms [N] or None, values [O, N, Cv],
+    valid [G, N] bool). Returns (readout [O, P, Cv] f32, [usage [N] f32 per
+    segment]), equivalent to the dense path over the concatenation
+    (reference memory_manager.py:61-190). want_usage: per segment, whether its
+    usage is needed; the usage pass is skipped (None returned) otherwise.
+    An empty segment takes no part; its usage is an empty tensor."""
+    p = qk.shape[0]
+    o, _, cv = segments[0][2].shape
+    if want_usage is None:
+        want_usage = [True] * len(segments)
+    usages = [qk.new_zeros((0,)) if seg[0].shape[0] == 0 else None
+              for seg in segments]
+    live = [i for i, seg in enumerate(segments) if seg[0].shape[0] > 0]
+    out = torch.zeros((o, p, cv), dtype=torch.float32, device=qk.device)
+    if not live:            # no memory at all: nothing to read
+        return out, usages
+    sims = [get_similarity_padded(segments[i][0], segments[i][1], qk, qe, p,
+                                  segments[i][0].shape[0]) for i in live]
+    valids = [segments[i][3].contiguous() for i in live]
+    tau, rmax, invz = _topk_stats_fused(sims, valids, top_k)
+
+    for i, sim, valid in zip(live, sims, valids):
+        out += topk_readout(sim, segments[i][2].contiguous(), valid, tau,
+                            rmax, invz, tuple(group_ids))
+        if want_usage[i]:
+            usages[i] = topk_usage(sim, valid, tau, rmax, invz)
+    return out, usages
+
+
+def fused_topk_readout(mk, ms, qk, qe, values, valid,
+                       group_ids: Tuple[int, ...], top_k: int):
+    """Single-segment convenience wrapper: (readout [O, P, Cv] f32,
+    usage [N] f32)."""
+    readout, usages = fused_topk_readout_multi(
+        [(mk, ms, values, valid)], qk, qe, group_ids, top_k)
+    return readout, usages[0]

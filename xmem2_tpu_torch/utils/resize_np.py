@@ -1,0 +1,59 @@
+"""Host-side (numpy) resize with exact torch semantics.
+
+The reference resizes inputs on the CPU dataloader side with
+torchvision.transforms.Resize(size, BILINEAR) applied to tensors — plain
+bilinear, half-pixel centers, NO antialiasing (torchvision 0.13 default,
+reference inference/data/video_reader.py:61-65) — and masks with
+F.interpolate(mode='nearest') (video_reader.py:149-154). These helpers
+reproduce both without a torch dependency.
+"""
+
+from typing import Tuple
+
+import numpy as np
+
+
+def shorter_side_size(h: int, w: int, size: int) -> Tuple[int, int]:
+    """torchvision Resize(int) convention: shorter side -> size, aspect kept
+    (int truncation as in torchvision/functional)."""
+    if h <= w:
+        return size, max(1, int(size * w / h))
+    return max(1, int(size * h / w)), size
+
+
+def resize_bilinear_np(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """img [H, W, C] float -> [oh, ow, C]; torch bilinear align_corners=False,
+    no antialias."""
+    h, w = img.shape[:2]
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return img
+
+    def axis(in_size, out_size):
+        coord = (np.arange(out_size, dtype=np.float64) + 0.5) * (in_size / out_size) - 0.5
+        coord = np.clip(coord, 0.0, in_size - 1)
+        lo = np.floor(coord).astype(np.int64)
+        hi = np.minimum(lo + 1, in_size - 1)
+        return lo, hi, (coord - lo).astype(np.float32)
+
+    hlo, hhi, hf = axis(h, oh)
+    wlo, whi, wf = axis(w, ow)
+    x = img.astype(np.float32)
+    top = x[hlo]
+    bot = x[hhi]
+    rows = top + (bot - top) * hf[:, None, None]
+    left = rows[:, wlo]
+    right = rows[:, whi]
+    return left + (right - left) * wf[None, :, None]
+
+
+def resize_nearest_np(img: np.ndarray, out_hw: Tuple[int, int]) -> np.ndarray:
+    """torch F.interpolate(mode='nearest'): src = floor(dst * in/out).
+    img [..., H, W] (trailing spatial)."""
+    h, w = img.shape[-2:]
+    oh, ow = out_hw
+    if (h, w) == (oh, ow):
+        return img
+    hi = np.floor(np.arange(oh) * (h / oh)).astype(np.int64)
+    wi = np.floor(np.arange(ow) * (w / ow)).astype(np.int64)
+    return img[..., hi, :][..., wi]
