@@ -11,10 +11,14 @@ fails the run when it fails:
   3. kernels: each kernel against its plain PyTorch version on the card, at
               the main path's shapes (P = 1620 and 9 * 1620 query rows, three
               memory segments of ~34k slots with ragged tails, Cv = 512,
-              k = 30, two objects in two groups, duplicated keys for ties),
-              timed with CUDA events beside its plain version, a PyTorch
-              yardstick where one call computes the same function, and its
-              bound on this card;
+              k = 30, two objects in two groups, duplicated keys for ties):
+              K2's values, k-th-value counts, merge and the softmax stats
+              bit-equal, K1 within tolerance, also in the overflow cases (a
+              segment smaller than k, top_k = 300, a key repeated 3,000
+              times); each timed with CUDA events beside its plain version,
+              a PyTorch yardstick where one call computes the same function,
+              and its bound on this card; then `match ms`, one whole
+              fused_topk_readout_multi call (three segments, usage on);
   4. main:    `run_on_video` of the port on the card, at the published XMem
               widths with seeded synthetic weights, on a synthetic 854x480
               video of 120 frames with two objects annotated on frames 0 and
@@ -26,11 +30,15 @@ fails the run when it fails:
 
 The second-to-last line of output is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}.
+
+    python3 chip_smoke.py --match-from DIR
+
+times only `match ms` of the port checked out under DIR (for instance a
+parent commit unpacked with `git archive`), on the same inputs.
 """
 
 import json
 import math
-import statistics
 import subprocess
 import sys
 import tempfile
@@ -80,19 +88,20 @@ def build_phase():
 # ---------------------------------------------------------------------------
 
 def _time_ms(fn, reps: int) -> float:
+    """Milliseconds a call: CUDA events around `reps` calls issued back to
+    back, after a warm-up call. The host's cost of a call hides behind the
+    device's work unless it is larger (then it is what is measured)."""
     import torch
     fn()
     torch.cuda.synchronize()
-    times = []
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
     for _ in range(reps):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
         fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b))
-    return statistics.median(times)
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
 
 
 def _segments(dev, p, seg_ns=(10128, 17820, 6480), ck=64, cv=512, o=2, g=2,
@@ -131,6 +140,123 @@ def _bound_ms(nbytes: float, flops: float, dtype: str):
     return max(t_bytes, t_ops), ('bytes' if t_bytes >= t_ops else 'operations')
 
 
+def _same(a, b) -> bool:
+    """Equal values, NaN where NaN (a group with no valid slot has NaN 1/Z
+    in both versions; its weights are all gated to 0)."""
+    import torch
+    return a.shape == b.shape and bool(
+        torch.all((a == b) | (torch.isnan(a) & torch.isnan(b))))
+
+
+def _check_k2(RK, sims, valids, k, tag):
+    """K2 per segment and its cross-segment merge, and the stats they give,
+    bit-equal to the plain versions. Returns the stats."""
+    import torch
+    seg_vals = []
+    for sim, valid in zip(sims, valids):
+        got = RK.block_topk_candidates(sim, valid, k)
+        want = RK.block_topk_candidates_plain(sim, valid, k)
+        for name, a, b in zip(('values', 'k-th counts'), got, want):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f'K2 {name} differ in {(a != b).sum().item()} entries '
+                    f'({tag}, N={sim.shape[1]})')
+        seg_vals.append(got[0])
+    if len(seg_vals) > 1:
+        merged = torch.cat(seg_vals, dim=-1)
+        got = RK.block_topk_candidates(merged, None, k)
+        want = RK.block_topk_candidates_plain(merged, None, k)
+        if not all(torch.equal(a, b) for a, b in zip(got, want)):
+            raise AssertionError(f'K2 merge differs from plain ({tag})')
+    stats = RK._topk_stats_fused(sims, valids, k)
+    stats_plain = RK._topk_stats_fused(
+        sims, valids, k, candidates=RK.block_topk_candidates_plain)
+    for name, a, b in zip(('tau', 'rmax', 'invz'), stats, stats_plain):
+        if not _same(a, b):
+            raise AssertionError(f'K2 stats {name} differ ({tag})')
+    return stats
+
+
+def _check_k1(RK, sims, segs, stats, gids, err):
+    """K1 readout (f32 and bf16 values) against its plain version per
+    segment; max abs errors into err."""
+    import torch
+    tau, rmax, invz = stats
+    for sim, (_, _, values, valid) in zip(sims, segs):
+        for vdt in (torch.float32, torch.bfloat16):
+            v = values.to(vdt)
+            got = RK.topk_readout(sim, v, valid, tau, rmax, invz, gids)
+            want = RK.topk_readout_plain(sim, v, valid, tau, rmax, invz,
+                                         gids)
+            key = f'topk_readout_{str(vdt)[6:]}'
+            err[key] = max(err[key], (got - want).abs().max().item())
+
+
+def _overflow_cases(RK, qk, qe, sims, segs, gids, err):
+    """K1's flush path and under-full groups, which no CPU test reaches:
+    a segment smaller than k (tau = -inf, every valid slot counts), the
+    sort path (top_k = 300), K2 at k = 64 (its path for k > 32), and a
+    segment whose first 3,000 keys are one key repeated, so every row of
+    group 0 has 3,000 slots tied at its k-th value (more than a list holds:
+    the kernel flushes and scans on)."""
+    import torch
+    from xmem2_tpu_torch.ops.similarity import get_similarity_padded
+    p = qk.shape[0]
+    mk, ms, values, valid = segs[1]
+    sim20 = sims[1][:, :20].contiguous()
+    seg20 = (None, None, values[:, :20].contiguous(),
+             valid[:, :20].contiguous())
+    st = _check_k2(RK, [sim20], [seg20[3]], 30, f'P={p} N=20')
+    if not bool(torch.isinf(st[0]).all()):
+        raise AssertionError('N=20 < k: tau should be -inf')
+    _check_k1(RK, [sim20], [seg20], st, gids, err)
+
+    st = RK._topk_stats_fused([sims[1]], [valid], 300)
+    _check_k1(RK, [sims[1]], [segs[1]], st, gids, err)
+    # 32 < k <= 256: K2's shared-buffer path (the main path's k uses the
+    # register path)
+    _check_k2(RK, sims, [s[3] for s in segs], 64, f'P={p} k=64')
+
+    # sim <= 0 (a scaled negative distance), so a tiny shrinkage puts the
+    # repeated key on top of every row
+    mk_rep = mk.clone()
+    mk_rep[:3000] = mk[0]
+    ms_rep = ms.clone()
+    ms_rep[:3000] = 1e-6
+    sim_rep = get_similarity_padded(mk_rep, ms_rep, qk, qe, p, mk.shape[0])
+    st = _check_k2(RK, [sim_rep], [valid], 30, f'P={p} repeated keys')
+    hits = int(((sim_rep >= st[0][:, :1]) & valid[0]).sum(1).min())
+    if hits < 3000:
+        raise AssertionError(f'repeated keys: only {hits} hits in a row')
+    _check_k1(RK, [sim_rep], [(mk_rep, ms_rep, values, valid)], st, gids,
+              err)
+    log(f'[kernels] P={p}: overflow cases (N=20, top_k=300, repeated keys '
+        f'with >= {hits} hits a row) and K2 at k=64 agree with plain')
+
+
+def match_phase(ps=(1620, 9 * 1620)):
+    """match ms: the whole readout of one match call, in bf16 (default mode)
+    and f32 (--exact) values. Works on any commit of the port that has
+    fused_topk_readout_multi, so the same inputs time a parent commit."""
+    import torch
+    from xmem2_tpu_torch.ops import readout_kernel as RK
+    dev = torch.device('cuda')
+    out = {}
+    for p in ps:
+        qk, qe, segs = _segments(dev, p)
+        for vdt in (torch.bfloat16, torch.float32):
+            sv = [(mk, ms, v.to(vdt), va) for mk, ms, v, va in segs]
+            out[(p, str(vdt)[6:])] = _time_ms(
+                lambda: RK.fused_topk_readout_multi(sv, qk, qe, (0, 1), 30),
+                10 if p == 1620 else 4)
+        log(f'[match] P={p}, three segments (10128 / 17820 / 6480 slots), '
+            f'usage on: match ms bf16 {out[(p, "bfloat16")]:.4f}, f32 '
+            f'{out[(p, "float32")]:.4f}')
+        del segs
+        torch.cuda.empty_cache()
+    return out
+
+
 def kernel_phase():
     import torch
     from xmem2_tpu_torch.ops import readout_kernel as RK
@@ -145,41 +271,25 @@ def kernel_phase():
                 for mk, ms, _, _ in segs]
         valids = [s[3] for s in segs]
 
-        # K2: candidates and stats bit-equal to the plain version
-        for sim, valid in zip(sims, valids):
-            got = RK.block_topk_candidates(sim, valid, k)
-            want = RK.block_topk_candidates_plain(sim, valid, k)
-            if not torch.equal(got, want):
-                bad = (got != want).sum().item()
-                raise AssertionError(f'K2 candidates differ in {bad} entries '
-                                     f'(P={p}, N={sim.shape[1]})')
-        stats = RK._topk_stats_fused(sims, valids, k)
-        stats_plain = RK._topk_stats_fused(
-            sims, valids, k, candidates=RK.block_topk_candidates_plain)
-        for name, a, b in zip(('tau', 'rmax', 'invz'), stats, stats_plain):
-            if not torch.equal(a, b):
-                raise AssertionError(f'K2 stats {name} differ (P={p})')
+        # K2: values, k-th counts, merge and stats bit-equal to plain
+        stats = _check_k2(RK, sims, valids, k, f'P={p}')
         tau, rmax, invz = stats
         n_ties = sum(int(((s == tau[:, :1]) & v[0]).sum()) for s, v in
                      zip(sims, valids)) - p
-        log(f'[kernels] P={p}: K2 candidates and stats bit-equal to plain; '
-            f'{n_ties} slots beyond one per row sit on the k-th value')
+        log(f'[kernels] P={p}: K2 values, k-th counts, merge and stats '
+            f'bit-equal to plain; {n_ties} slots beyond one per row sit on '
+            f'the k-th value')
 
         # K1: readout (f32 and bf16 values) and usage, per segment
         err = {'topk_readout_float32': 0.0, 'topk_readout_bfloat16': 0.0,
                'topk_usage': 0.0}
-        for sim, (_, _, values, valid) in zip(sims, segs):
-            for vdt in (torch.float32, torch.bfloat16):
-                v = values.to(vdt)
-                got = RK.topk_readout(sim, v, valid, tau, rmax, invz, gids)
-                want = RK.topk_readout_plain(sim, v, valid, tau, rmax, invz,
-                                             gids)
-                key = f'topk_readout_{str(vdt)[6:]}'
-                err[key] = max(err[key], (got - want).abs().max().item())
+        _check_k1(RK, sims, segs, stats, gids, err)
+        for sim, (_, _, _, valid) in zip(sims, segs):
             got = RK.topk_usage(sim, valid, tau, rmax, invz)
             want = RK.topk_usage_plain(sim, valid, tau, rmax, invz)
             rel = ((got - want).abs() / want.abs().clamp_min(1e-3)).max()
             err['topk_usage'] = max(err['topk_usage'], rel.item())
+        _overflow_cases(RK, qk, qe, sims, segs, gids, err)
         log(f'[kernels] P={p}: max abs err readout f32 '
             f'{err["topk_readout_float32"]:.3e} (tol {KERNEL_TOL["float32"]}), '
             f'bf16 {err["topk_readout_bfloat16"]:.3e} '
@@ -195,21 +305,21 @@ def kernel_phase():
         # timings at the largest segment (temp, N = 17820), one wrapper call
         sim, (_, _, values, valid) = sims[1], segs[1]
         n = sim.shape[1]
-        nb = -(-n // RK.BN)
         reps = 10 if p == 1620 else 3
         g = valid.shape[0]
-        cand_bytes = sim.numel() * 4 + valid.numel() + g * p * nb * k * 4
-        blocks = torch.nn.functional.pad(
-            torch.where(valid[:, None, :], sim[None], -math.inf),
-            (0, nb * RK.BN - n), value=-math.inf).reshape(g, p, nb, RK.BN)
+        # K2 reads the similarity and validity once and writes k values and
+        # one count per (group, row); its yardstick is torch.topk over each
+        # group's masked row
+        k2_bytes = sim.numel() * 4 + valid.numel() + g * p * (k + 1) * 4
+        masked = torch.where(valid[:, None, :], sim[None], -math.inf)
         rows[('block_topk_candidates', p)] = dict(
             ms=_time_ms(lambda: RK.block_topk_candidates(sim, valid, k), reps),
             plain_ms=_time_ms(
-                lambda: RK.block_topk_candidates_plain(sim, valid, k), 2),
-            library_ms=_time_ms(lambda: torch.topk(blocks, k, dim=-1), reps),
-            bound=_bound_ms(cand_bytes, 0.0, 'float32'),
+                lambda: RK.block_topk_candidates_plain(sim, valid, k), reps),
+            library_ms=_time_ms(lambda: torch.topk(masked, k, dim=-1), reps),
+            bound=_bound_ms(k2_bytes, 0.0, 'float32'),
             max_abs_err=0.0)
-        del blocks
+        del masked
         keep = [((sim >= tau[:, gg:gg + 1]) & valid[gg][None]).sum().item()
                 for gg in range(g)]
         for vdt in (torch.float32, torch.bfloat16):
@@ -241,7 +351,7 @@ def kernel_phase():
                 log(f'[kernels] P={p} N={n} {name}: {r["ms"]:.4f} ms, plain '
                     f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]}, '
                     f'bound {r["bound"][0]:.4f} ms ({r["bound"][1]})')
-        del sims, segs, stats, stats_plain
+        del sims, segs, stats
         torch.cuda.empty_cache()
     return rows
 
@@ -493,21 +603,37 @@ def kernels_json(rows, launches):
 # entry point
 # ---------------------------------------------------------------------------
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split('\n\n')[0])
+    ap.add_argument('--match-from', metavar='DIR',
+                    help='only time the whole readout call (match ms) of the '
+                         'port checked out under DIR, e.g. a parent commit '
+                         'unpacked there with git archive')
+    args = ap.parse_args(argv)
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
         return 2
-    sys.path.insert(0, str(Path(__file__).resolve().parent))
-    import xmem2_tpu_torch  # noqa: F401  (fails outside the repository)
+    root = Path(args.match_from or Path(__file__).parent).resolve()
+    sys.path.insert(0, str(root))
+    import xmem2_tpu_torch  # (fails outside the repository)
+    if Path(xmem2_tpu_torch.__file__).resolve().parents[1] != root:
+        raise RuntimeError(f'xmem2_tpu_torch imported from '
+                           f'{xmem2_tpu_torch.__file__}, not from {root}')
     from xmem2_tpu_torch.config import pin_f32_precision
 
     pin_f32_precision()
     card = card_line()
     log(f'[card] {card}; torch {torch.__version__}, CUDA {torch.version.cuda}'
         f', {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}')
+    if args.match_from:
+        log(f'[match] timing the port under {root}')
+        match_phase()
+        return 0
     build_phase()
     rows = kernel_phase()
+    match_phase()
     with tempfile.TemporaryDirectory() as work:
         counts = main_path_phase(Path(work), card)
         profile_phase(Path(work), card)

@@ -69,6 +69,20 @@ def test_entry_points_raise_without_cuda(tmp_path):
         run_on_video(tmp_path, tmp_path, tmp_path / 'out')
 
 
+def test_memory_manager_defaults_to_cuda():
+    """MemoryManager runs on the card unless asked for the CPU, like every
+    other entry point: without CUDA its default raises."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    from xmem2_tpu_torch.config import VIDEO_INFERENCE_CONFIG
+    from xmem2_tpu_torch.memory.manager import MemoryManager
+
+    with pytest.raises(RuntimeError, match='CUDA'):
+        MemoryManager(dict(VIDEO_INFERENCE_CONFIG))
+    mm = MemoryManager(dict(VIDEO_INFERENCE_CONFIG), device='cpu')
+    assert mm.device == torch.device('cpu')
+
+
 def test_unported_options_raise():
     from xmem2_tpu_torch.config import VIDEO_INFERENCE_CONFIG
     from xmem2_tpu_torch.memory.manager import MemoryManager

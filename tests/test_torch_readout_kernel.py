@@ -1,9 +1,11 @@
 """The readout kernels' plain versions and the orchestration around them
 (xmem2_tpu_torch.ops.readout_kernel) on the CPU, against the JAX package.
 
-  * K2 (block_topk_candidates) and the stats it feeds (_topk_stats_fused)
-    against the JAX Pallas kernel run in interpret mode: selection only, so
-    candidates are exactly equal, tau and rmax too.
+  * K2 (block_topk_candidates: each row's top-k and its k-th value's tie
+    count) against the top-k of the JAX Pallas per-block candidates run in
+    interpret mode: selection only, so values are exactly equal; the stats
+    it feeds (_topk_stats_fused) too, tau and rmax exactly, and the
+    closed-form tie count against the dense count.
   * K1 (topk_readout / topk_usage) and fused_topk_readout_multi against the
     JAX jnp path (similarity + softmax_w_top + readout), NOT the JAX Pallas
     readout, which returns NaN at this commit (its readout_kernel.py:450
@@ -84,6 +86,8 @@ def port_sim(mk, ms, qk, qe):
 
 @pytest.mark.parametrize('case', ['ragged', 'groups', 'ties', 'n_below_k'])
 def test_block_topk_candidates_match_pallas(case):
+    """K2 = the top-k of the Pallas kernel's per-block candidates, bitwise,
+    and its tie count = the dense count of the k-th value."""
     k = 30
     if case == 'ties':
         mk, ms, qk, qe, _, valid = dup_case(n=700)
@@ -94,11 +98,30 @@ def test_block_topk_candidates_match_pallas(case):
         mk, ms, qk, qe, _, valid = make_case(0, 1100, 70, 1, g,
                                              invalid_tail=37)
     sim = port_sim(mk, ms, qk, qe)
-    got = TR.block_topk_candidates(sim, t(valid), k)
-    want = JR.block_topk_candidates(jnp.asarray(sim.numpy()),
-                                    jnp.asarray(valid), k, interpret=True)
-    assert got.shape == tuple(want.shape)
-    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    vals, kcnt = TR.block_topk_candidates(sim, t(valid), k)
+    cand = np.asarray(JR.block_topk_candidates(
+        jnp.asarray(sim.numpy()), jnp.asarray(valid), k, interpret=True))
+    want = -np.sort(-cand, axis=-1)[..., :k]
+    assert vals.shape == want.shape and vals.dtype == torch.float32
+    np.testing.assert_array_equal(vals.numpy(), want)
+    s = sim.numpy()
+    dense = ((s[None] == want[..., -1:]) & valid[:, None, :]).sum(-1)
+    np.testing.assert_array_equal(kcnt.numpy(), dense)
+    assert kcnt.dtype == torch.int32
+
+
+def test_block_topk_candidates_grouped_merge():
+    """Grouped mode (the cross-segment merge): sim [G, P, M], every slot
+    valid, -inf entries included, against numpy's sort."""
+    rng = np.random.default_rng(4)
+    m = rng.standard_normal((2, 9, 90)).astype(np.float32)
+    m[0, :, 50:] = -np.inf
+    m[1, 3, 5:] = -np.inf
+    vals, kcnt = TR.block_topk_candidates(t(m), None, 30)
+    want = -np.sort(-m, axis=-1)[..., :30]
+    np.testing.assert_array_equal(vals.numpy(), want)
+    np.testing.assert_array_equal(kcnt.numpy(),
+                                  (m == want[..., -1:]).sum(-1))
 
 
 def _jax_padded(sims, valids):
@@ -140,6 +163,57 @@ def test_topk_stats_match_pallas(case):
             # 1/Z sums exp() of the same values; XLA's and PyTorch's exp may
             # differ in the last ulp, so rtol 1e-6 (tau and rmax are pure
             # selection: exact)
+            np.testing.assert_allclose(a.numpy(), b, rtol=1e-6, err_msg=name)
+        else:
+            np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
+
+
+def _split_case(case):
+    """(sims, valids) of a case cut into segments, as the memory stores
+    hold it."""
+    if case == 'ties':
+        mk, ms, qk, qe, _, valid = dup_case(n=900)
+        cuts = (500, 900)
+    else:
+        mk, ms, qk, qe, _, valid = make_case(1, 20, 40, 1, 1)
+        cuts = (20,)
+    sims, valids, lo = [], [], 0
+    for hi in cuts:
+        sims.append(port_sim(mk[lo:hi], ms[lo:hi], qk, qe))
+        valids.append(valid[:, lo:hi])
+        lo = hi
+    return sims, valids
+
+
+@pytest.mark.parametrize('top_k', [30, 31])
+@pytest.mark.parametrize('case', ['ties', 'n_below_k'])
+def test_closed_form_tie_count(case, top_k):
+    """The tie count from K2's per-segment outputs equals the dense count
+    over every similarity, and the stats equal the JAX package's under ties
+    (top_k 31 splits duplicated pairs at the k-th value)."""
+    sims, valids = _split_case(case)
+    tv = [t(v) for v in valids]
+    total = sum(TR._round_up(s.shape[-1], TR.BN) for s in sims)
+    k = min(top_k, total)
+    per_seg = [TR.block_topk_candidates(s, v, k) for s, v in zip(sims, tv)]
+    seg_vals = [v for v, _ in per_seg]
+    merged = seg_vals[0] if len(seg_vals) == 1 else \
+        TR.block_topk_candidates(torch.cat(seg_vals, -1), None, k)[0]
+    tau = merged[..., -1]
+    dense = TR._tie_count_dense(tau, sims, tv)
+    closed = TR._tie_count_closed(tau, torch.stack(seg_vals, dim=2),
+                                  torch.stack([c for _, c in per_seg], -1))
+    np.testing.assert_array_equal(closed.numpy(), dense.numpy())
+    if case == 'ties' and top_k == 31:
+        in_k = (merged == tau[..., None]).sum(-1)
+        assert bool((dense > in_k).any()), 'no boundary tie outside the k'
+
+    got = TR._topk_stats_fused(sims, tv, top_k)
+    js, jv = _jax_padded(sims, valids)
+    want = JR._topk_stats_fused(js, jv, top_k, interpret=True)
+    for name, a, b in zip(('tau', 'rmax', 'invz'), got, want):
+        b = np.asarray(b)
+        if name == 'invz':
             np.testing.assert_allclose(a.numpy(), b, rtol=1e-6, err_msg=name)
         else:
             np.testing.assert_array_equal(a.numpy(), b, err_msg=name)
@@ -289,3 +363,8 @@ def test_wrappers_reject_bad_input():
     with pytest.raises(ValueError):
         TR.block_topk_candidates(sim, torch.ones((1, 10), dtype=torch.bool),
                                  0)
+    with pytest.raises(ValueError):     # grouped mode needs [G, P, M]
+        TR.block_topk_candidates(sim, None, 3)
+    with pytest.raises(ValueError):     # validity width differs
+        TR.block_topk_candidates(sim, torch.ones((1, 9), dtype=torch.bool),
+                                 3)

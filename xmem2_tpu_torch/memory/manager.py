@@ -31,8 +31,8 @@ from typing import Dict, List, Optional, Tuple
 
 import torch
 
-from xmem2_tpu_torch.config import check_supported, resolve_dtype_name, \
-    torch_dtype
+from xmem2_tpu_torch.config import check_supported, resolve_device, \
+    resolve_dtype_name, torch_dtype
 from xmem2_tpu_torch.memory import store as ST
 from xmem2_tpu_torch.memory.store import StoreBuffers
 from xmem2_tpu_torch.ops.readout_kernel import fused_topk_readout_multi
@@ -119,12 +119,13 @@ def _consolidate_kernel(temp: StoreBuffers, long: StoreBuffers, *,
 
 
 class MemoryManager:
-    """Host-side orchestrator with the reference MemoryManager's API."""
+    """Host-side orchestrator with the reference MemoryManager's API. Runs
+    on CUDA unless `device` says otherwise (config.resolve_device)."""
 
-    def __init__(self, config: dict, device='cpu'):
+    def __init__(self, config: dict, device=None):
         check_supported(config)
         self.config = config
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.hidden_dim = config['hidden_dim']
         self.top_k = config['top_k']
 

@@ -8,21 +8,23 @@ per object group, the value readout and the usage count. Split of work:
 
   1. A plain f32 product computes the similarity [P, N] of each memory
      segment (get_similarity_padded, no padding).
-  2. K2, `block_topk_candidates` (csrc/block_topk.cu), extracts the exact
-     top-k values of every 512-slot block; merge rounds of the same kernel
-     reduce them to the k global values, which give each row's softmax stats
-     in closed form: the row max, the k-th value tau and 1/Z.
-  3. K1, `topk_readout` and `topk_usage` (csrc/topk_readout.cu), stream the
-     similarity and values once per segment with those shared stats:
-     threshold mask, exp, normalisation, per-object value product, and the
-     group-0 usage sum. No dense affinity is ever stored.
+  2. K2, `block_topk_candidates` (csrc/block_topk.cu), reads each segment's
+     similarity once for all groups and returns each row's exact top-k values
+     and the count of its k-th value; one more launch merges the segments'
+     lists. The k values give each row's softmax stats in closed form: the
+     row max, the k-th value tau and 1/Z, with the tie count folded in
+     without any dense pass (_tie_count_closed).
+  3. K1, `topk_readout` and `topk_usage` (csrc/topk_readout.cu), apply those
+     shared stats per segment: threshold mask, exp, normalisation, the
+     per-object value readout (a gather of the value rows with weight) and
+     the group-0 usage sum. No dense affinity is ever stored.
 
 Each wrapper takes its plain version for a tensor on the CPU and its kernel
 for a tensor on a CUDA device, and counts the launches of its kernel in
 LAUNCHES. There is no fallback from a CUDA tensor to the plain version.
 
 Ties at the k-th value: like the JAX kernels, the streamed pass includes the
-WHOLE tied set and folds the tie count into Z (_tie_corrected_z), so weights
+WHOLE tied set and folds the tie count into Z (_stats_from_vals), so weights
 sum to exactly 1; the dense reference (similarity.softmax_w_top) keeps an
 arbitrary k-subset of the tie.
 """
@@ -36,7 +38,7 @@ from xmem2_tpu_torch.ops import cuda_build
 from xmem2_tpu_torch.ops.similarity import (
     NEG_INF, get_similarity_padded, top_k_values)
 
-BN = 512  # candidate block width: part of block_topk_candidates' contract
+BN = 512  # the JAX package's memory tile: widths count padded to it
 
 # kernel launches of each wrapper since the last reset_launch_counts()
 LAUNCHES = {'block_topk_candidates': 0, 'topk_readout': 0, 'topk_usage': 0}
@@ -78,131 +80,160 @@ def _raise_on(rc: int, name: str):
 
 
 # ---------------------------------------------------------------------------
-# K2: per-block exact top-k candidates
+# K2: one-pass exact top-k with the k-th value's tie count
 # ---------------------------------------------------------------------------
 
-def block_topk_candidates_plain(sim: torch.Tensor, valid: torch.Tensor,
-                                k: int) -> torch.Tensor:
-    """Plain version of K2: the same k iterative max-extractions with tie
-    multiplicities as the Pallas kernel, on whole tensors.
-
-    sim [P, N]; valid [G, N] bool -> [G, P, nb*k], nb = ceil(N / BN)."""
-    p, n = sim.shape
-    g = valid.shape[0]
-    nb = -(-n // BN)
-    pad = nb * BN - n
-    s = torch.nn.functional.pad(sim, (0, pad), value=-torch.inf)
-    v = torch.nn.functional.pad(valid, (0, pad), value=False)
-    rem = torch.where(v[:, None, :], s[None], -torch.inf)      # [G, P, nb*BN]
-    rem = rem.reshape(g, p, nb, BN)
-    out = torch.full((g, p, nb, k), -torch.inf, dtype=torch.float32,
-                     device=sim.device)
-    js = torch.arange(k, device=sim.device)
-    cum = torch.zeros((g, p, nb, 1), dtype=torch.int64, device=sim.device)
-    for _ in range(k):
-        m = torch.amax(rem, dim=-1, keepdim=True)
-        hit = rem == m
-        cnt = hit.sum(dim=-1, keepdim=True)
-        out = torch.where((js >= cum) & (js < cum + cnt), m, out)
-        rem = torch.where(hit, -torch.inf, rem)
-        cum = cum + cnt
-    return out.reshape(g, p, nb * k)
+def _k2_inputs(sim: torch.Tensor, valid: Optional[torch.Tensor]):
+    """Shared mode: sim [P, N], valid [G, N]. Grouped mode: sim [G, P, N],
+    valid None (every slot valid). Returns (G, P, N)."""
+    if valid is None:
+        if sim.dim() != 3:
+            raise ValueError('block_topk_candidates: without validity, sim '
+                             'must be [G, P, N]')
+        return sim.shape
+    if sim.dim() != 2 or valid.dim() != 2 or valid.shape[1] != sim.shape[1]:
+        raise ValueError('block_topk_candidates: sim [P, N] and valid [G, N] '
+                         'disagree in shape')
+    return (valid.shape[0],) + tuple(sim.shape)
 
 
-def block_topk_candidates(sim: torch.Tensor, valid: torch.Tensor,
-                          k: int) -> torch.Tensor:
-    """Per-512-block exact top-k values for every group (K2).
+def block_topk_candidates_plain(sim: torch.Tensor,
+                                valid: Optional[torch.Tensor], k: int
+                                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of K2: per (group, row), the k largest valid values
+    sorted descending with their multiplicities and -inf padding, and the
+    count of valid slots equal to the k-th of them.
 
-    sim [P, N] f32; valid [G, N] bool -> candidates [G, P, nb*k] with
-    nb = ceil(N / BN). The global top-k over N equals the top-k over these
-    candidates. k <= BN."""
+    sim [P, N] with valid [G, N] bool, or sim [G, P, N] with valid None ->
+    (vals [G, P, k] f32, kcnt [G, P] int32)."""
+    g, p, n = _k2_inputs(sim, valid)
+    if valid is None:
+        keep = torch.ones((g, 1, n), dtype=torch.bool, device=sim.device)
+        masked = sim
+    else:
+        keep = valid[:, None, :]
+        masked = torch.where(keep, sim[None], -torch.inf)     # [G, P, N]
+    if n < k:
+        masked = torch.nn.functional.pad(masked, (0, k - n), value=-torch.inf)
+    vals = torch.topk(masked, k, dim=-1).values.contiguous()
+    src = sim if valid is None else sim[None]
+    kcnt = ((src == vals[..., -1:]) & keep).sum(-1, dtype=torch.int32)
+    return vals, kcnt
+
+
+def block_topk_candidates(sim: torch.Tensor, valid: Optional[torch.Tensor],
+                          k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K2: one pass over a segment's similarity for all groups. Each row's
+    exact top-k values (sorted descending, tie multiplicities, -inf
+    padding) and the count of slots equal to its k-th value.
+
+    sim [P, N] f32 with valid [G, N] bool, or sim [G, P, N] with valid None
+    (the cross-segment merge) -> (vals [G, P, k] f32, kcnt [G, P] int32).
+    k <= BN."""
     if not 0 < k <= BN:
         raise ValueError(f'block_topk_candidates: k={k} outside (0, {BN}]')
     if sim.device.type == 'cpu':
         return block_topk_candidates_plain(sim, valid, k)
-    _check_cuda('block_topk_candidates', sim.device,
-                sim=(sim, (torch.float32,)), valid=(valid, (torch.bool,)))
-    p, n = sim.shape
-    g = valid.shape[0]
-    if valid.shape[1] != n:
-        raise ValueError('block_topk_candidates: valid and sim widths differ')
-    nb = -(-n // BN)
-    out = torch.empty((g, p, nb * k), dtype=torch.float32, device=sim.device)
-    lib = cuda_build.library('block_topk')
-    lib.block_topk_launch.restype = ctypes.c_int
-    rc = lib.block_topk_launch(_ptr(sim), _ptr(valid), _ptr(out),
-                               ctypes.c_int(p), ctypes.c_int(n),
-                               ctypes.c_int(g), ctypes.c_int(k), _stream(sim))
+    tensors = dict(sim=(sim, (torch.float32,)))
+    if valid is not None:
+        tensors['valid'] = (valid, (torch.bool,))
+    _check_cuda('block_topk_candidates', sim.device, **tensors)
+    g, p, n = _k2_inputs(sim, valid)
+    if g > 8:
+        raise ValueError('block_topk_candidates: more than 8 groups')
+    vals = torch.empty((g, p, k), dtype=torch.float32, device=sim.device)
+    kcnt = torch.empty((g, p), dtype=torch.int32, device=sim.device)
+    fn = cuda_build.library('block_topk').block_topk_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                   ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 \
+        + [ctypes.c_void_p]
+    rc = fn(
+        _ptr(sim), ctypes.c_longlong(0 if valid is not None else p * n),
+        None if valid is None else _ptr(valid), _ptr(vals), _ptr(kcnt),
+        ctypes.c_int(p), ctypes.c_int(n), ctypes.c_int(g), ctypes.c_int(k),
+        _stream(sim))
     _raise_on(rc, 'block_topk_candidates')
     LAUNCHES['block_topk_candidates'] += 1
-    return out
+    return vals, kcnt
 
 
 # ---------------------------------------------------------------------------
-# softmax stats: candidates -> (tau, rmax, 1/Z)
+# softmax stats: per-segment top-k -> (tau, rmax, 1/Z)
 # ---------------------------------------------------------------------------
 
-def _tie_corrected_z(z, vals, tau, rmax, sims, valids):
-    """Fold boundary ties into the softmax normalizer.
-
-    The streaming pass includes EVERY entry with sim >= tau, so when ties at
-    the k-th value extend past the k candidate slots, Z from the k candidates
-    alone under-counts. Count the tied entries across all segments, subtract
-    the ones inside the candidate list and add the difference's mass to Z.
-    Without boundary ties the correction is exactly zero.
-
-    z/tau/rmax [G, P]; vals [G, P, k]; sims list of [P, N]; valids [G, N]."""
-    cnt_in_k = torch.sum(vals == tau[..., None], dim=-1)          # [G, P]
-    cnt_total = torch.zeros_like(cnt_in_k)
+def _tie_count_dense(tau, sims, valids):
+    """Slots equal to tau [G, P] over all segments, by dense passes over
+    every [P, N] similarity: the sort path's count, and the closed form's
+    oracle in the tests."""
+    cnt = torch.zeros(tau.shape, dtype=torch.int64, device=tau.device)
     for sim, valid in zip(sims, valids):
         for gi in range(tau.shape[0]):
             eq = (sim == tau[gi][:, None]) & valid[gi][None, :]
-            cnt_total[gi] += torch.sum(eq, dim=-1)
+            cnt[gi] += torch.sum(eq, dim=-1)
+    return cnt
+
+
+def _tie_count_closed(tau, seg_vals, seg_kcnts):
+    """The same count from K2's per-segment outputs, with no dense pass.
+
+    tau is the global k-th value, so it is at least every segment's own
+    k-th value v_s (else segment s alone would hold k values above tau).
+    Where tau == v_s the segment's count is its k-th-value count; where
+    tau > v_s every slot equal to tau is inside the segment's list, so the
+    count is tau's multiplicity there. tau [G, P]; seg_vals [G, P, S, k]
+    and seg_kcnts [G, P, S], segment s at index s."""
+    t = tau[..., None]
+    in_list = torch.sum(seg_vals == t[..., None], dim=-1)         # [G, P, S]
+    return torch.sum(torch.where(seg_vals[..., -1] == t,
+                                 seg_kcnts.long(), in_list), dim=-1)
+
+
+def _stats_from_vals(vals, cnt_total):
+    """(tau, rmax, 1/Z) [P, G] from the global top-k values [G, P, k] and the
+    count of slots equal to the k-th value over all segments.
+
+    Boundary ties: the streaming pass includes EVERY slot with sim >= tau,
+    so when ties at the k-th value extend past the k values, Z from the k
+    values alone under-counts. The tied slots outside the list add their
+    mass to Z; without boundary ties the correction is exactly zero."""
+    rmax = vals[..., 0]
+    z = torch.sum(torch.exp(vals - rmax[..., None]), dim=-1)
+    tau = vals[..., -1]
+    cnt_in_k = torch.sum(vals == tau[..., None], dim=-1)
     # -inf tau/rmax only occur for under-full groups, where the correction
     # must vanish (and exp(-inf - -inf) would be nan)
     finite = torch.isfinite(tau) & torch.isfinite(rmax)
     tie_w = torch.where(finite, torch.exp(tau - rmax), torch.zeros_like(tau))
-    return z + (cnt_total - cnt_in_k).to(z.dtype) * tie_w
-
-
-def _stats_from_vals(vals, sims, valids):
-    rmax = vals[..., 0]
-    z = torch.sum(torch.exp(vals - rmax[..., None]), dim=-1)
-    tau = vals[..., -1]
-    z = _tie_corrected_z(z, vals, tau, rmax, sims, valids)
+    z = z + (cnt_total - cnt_in_k).to(z.dtype) * tie_w
     return (tau.T.contiguous(), rmax.T.contiguous(), (1.0 / z).T.contiguous())
 
 
 def _topk_stats_fused(sims: Sequence[torch.Tensor],
                       valids: Sequence[torch.Tensor], top_k: int,
                       candidates=block_topk_candidates):
-    """tau / rmax / 1/Z, each [P, G], through K2 with its merge rounds.
+    """tau / rmax / 1/Z, each [P, G], through K2: one launch per segment,
+    one launch merging the segments' lists ([G, P, S*k] -> [G, P, k]), and
+    the closed-form tie count.
 
-    Widths count each segment padded to the block width, as the JAX package
-    does (its similarity is emitted at tile shape), so candidate arrays have
-    the same shapes in both packages. Each merge round maps width M to
-    ceil(M/BN)*k; the final single-block round leaves the k values sorted
-    descending. For k > BN/2 the width stops shrinking: use the sort path.
-    `candidates` is K2's wrapper; chip_smoke.py passes its plain version to
-    hold the kernel's stats against it on the card."""
-    g = valids[0].shape[0]
+    k counts each segment padded to the block width, as the JAX package does
+    (its similarity is emitted at tile shape), so both packages clamp k
+    alike. For k > BN/2 the JAX package's merge rounds stop shrinking and it
+    takes its sort path; so does this one. `candidates` is K2's wrapper;
+    chip_smoke.py passes its plain version to hold the kernel's stats
+    against it on the card."""
     total_n = sum(_round_up(s.shape[-1], BN) for s in sims)
     k = min(top_k, total_n)
     if k > BN // 2:
         return _topk_stats(sims, valids, top_k)
 
-    cands = [candidates(sim, valid, min(k, _round_up(sim.shape[-1], BN)))
-             for sim, valid in zip(sims, valids)]
-    merged = torch.cat(cands, dim=-1)                        # [G, P, sum]
-    while True:
-        ones = torch.ones((1, merged.shape[-1]), dtype=torch.bool,
-                          device=merged.device)
-        merged = torch.stack([
-            candidates(merged[gi].contiguous(), ones, k)[0]
-            for gi in range(g)])                             # [G, P, nb*k]
-        if merged.shape[-1] == k:
-            break
-    return _stats_from_vals(merged, sims, valids)
+    per_seg = [candidates(sim, valid, k) for sim, valid in zip(sims, valids)]
+    g, p = per_seg[0][1].shape
+    cat = torch.cat([v for v, _ in per_seg], dim=-1)              # [G, P, S*k]
+    vals = cat if len(per_seg) == 1 else candidates(cat, None, k)[0]
+    cnt = _tie_count_closed(vals[..., -1], cat.view(g, p, len(per_seg), k),
+                            torch.stack([c for _, c in per_seg], dim=-1))
+    return _stats_from_vals(vals, cnt)
 
 
 def _topk_stats(sims: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
@@ -224,7 +255,9 @@ def _topk_stats(sims: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
             cands.append(top_k_values(simg, min(k, simg.shape[-1])))
         merged = torch.cat(cands, dim=-1)
         vals_g.append(torch.topk(merged, k, dim=-1).values)
-    return _stats_from_vals(torch.stack(vals_g), sims, valids)
+    vals = torch.stack(vals_g)
+    return _stats_from_vals(vals, _tie_count_dense(vals[..., -1], sims,
+                                                   valids))
 
 
 # ---------------------------------------------------------------------------
@@ -279,13 +312,21 @@ def topk_readout(sim: torch.Tensor, values: torch.Tensor, valid: torch.Tensor,
                          'disagree in shape')
     if tau.shape != (p, g) or rmax.shape != (p, g) or invz.shape != (p, g):
         raise ValueError('topk_readout: stats must be [P, G]')
-    if max(group_ids) >= g or o > 64:
-        raise ValueError('topk_readout: group id out of range or > 64 objects')
+    if max(group_ids) >= g or o > 64 or g > 8:
+        raise ValueError('topk_readout: group id out of range, > 64 objects '
+                         'or > 8 groups')
+    if cv % 4 or values.data_ptr() % 16:
+        raise ValueError('topk_readout: the kernel reads values four '
+                         'channels at a time: Cv must be a multiple of 4 and '
+                         'values 16-byte aligned')
     out = torch.empty((o, p, cv), dtype=torch.float32, device=sim.device)
     gids = (ctypes.c_int * o)(*group_ids)
-    lib = cuda_build.library('topk_readout')
-    lib.topk_readout_launch.restype = ctypes.c_int
-    rc = lib.topk_readout_launch(
+    fn = cuda_build.library('topk_readout').topk_readout_launch
+    fn.restype = ctypes.c_int
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] \
+        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] \
+        + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+    rc = fn(
         _ptr(sim), _ptr(values), ctypes.c_int(values.dtype == torch.bfloat16),
         _ptr(valid), _ptr(tau), _ptr(rmax), _ptr(invz), gids, ctypes.c_int(o),
         _ptr(out), ctypes.c_int(p), ctypes.c_int(n), ctypes.c_int(cv),
