@@ -11,22 +11,38 @@ fails the run when it fails:
   3. kernels: each kernel against its plain PyTorch version on the card, at
               the main path's shapes (P = 1620 and 9 * 1620 query rows, three
               memory segments of ~34k slots with ragged tails, Cv = 512,
-              k = 30, two objects in two groups, duplicated keys for ties):
-              K2's values, k-th-value counts, merge and the softmax stats
-              bit-equal, K1 within tolerance, also in the overflow cases (a
-              segment smaller than k, top_k = 300, a key repeated 3,000
-              times); each timed with CUDA events beside its plain version,
-              a PyTorch yardstick where one call computes the same function,
-              and its bound on this card; then `match ms`, one whole
-              fused_topk_readout_multi call (three segments, usage on);
+              k = 30, two objects in two groups, duplicated keys for ties),
+              and at P = 1620 with the 38,880-slot permanent segment of
+              augmented preloading: K2's values, k-th-value counts, merge
+              and the softmax stats bit-equal, K1 within tolerance, also in
+              the overflow cases (a segment smaller than k, top_k = 300, a
+              key repeated 3,000 times); each timed with CUDA events beside
+              its plain version, a PyTorch yardstick where one call computes
+              the same function, and its bound on this card; then `match
+              ms`, one whole fused_topk_readout_multi call (three segments,
+              usage on);
   4. main:    `run_on_video` of the port on the card, at the published XMem
               widths with seeded synthetic weights, on a synthetic 854x480
               video of 120 frames with two objects annotated on frames 0 and
               60: once in the default mode (bf16, chunked) and once with
               --exact (f32). Every mask must be written, no probability NaN,
-              and every kernel's launch count must rise during the run;
-  5. check:   the port on the card against the port on the CPU (plain
-              versions of every kernel) on a small f32 video: masks equal.
+              and every kernel's launch count must rise during the run; then
+              a profiler window over a default run;
+  5. augment: the default run with augment_images_with_masks (24 frames in
+              permanent memory), launch counts, and a profiler window;
+  6. select:  select_k_next_best_annotation_candidates (k = 5) from the
+              default run's masks: five distinct frames, none of them 0,
+              finite dissimilarities;
+  7. spill:   a run with spill_long_term whose long-term memory evicts
+              (beside the same settings without spill), then the cap raised
+              through InferenceCore.update_config: rows archived and
+              revived, the next step finite;
+  8. eval:    python -m xmem2_tpu_torch.eval on two 854x480 videos of 30
+              frames, with --benchmark and with --save_scores;
+  9. check:   the port on the card against the port on the CPU (plain
+              versions of every kernel) on a small f32 video: masks equal,
+              also with augmentation; the same candidates chosen; spill
+              archives of the same size.
 
 The second-to-last line of output is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}.
@@ -37,6 +53,7 @@ times only `match ms` of the port checked out under DIR (for instance a
 parent commit unpacked with `git archive`), on the same inputs.
 """
 
+import contextlib
 import json
 import math
 import subprocess
@@ -107,8 +124,9 @@ def _time_ms(fn, reps: int) -> float:
 def _segments(dev, p, seg_ns=(10128, 17820, 6480), ck=64, cv=512, o=2, g=2,
               seed=0):
     """[long | temp | perm] segments at the main path's widths. perm repeats
-    the first slots of temp bit for bit, so the k-th value ties across
-    segments (the duplicated-memory regime)."""
+    the first slots of temp bit for bit (all of them when it is the larger),
+    so the k-th value ties across segments (the duplicated-memory
+    regime)."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -127,10 +145,10 @@ def _segments(dev, p, seg_ns=(10128, 17820, 6480), ck=64, cv=512, o=2, g=2,
         segs.append([mk, ms, values, valid])
     long_, temp, perm = segs
     temp[3][:, -37:] = False               # invalid ragged tail
-    n_perm = perm[0].shape[0]
-    perm[0] = temp[0][:n_perm].clone()
-    perm[1] = temp[1][:n_perm].clone()
-    perm[2] = temp[2][:, :n_perm].clone()
+    m = min(perm[0].shape[0], temp[0].shape[0])
+    perm[0][:m] = temp[0][:m]
+    perm[1][:m] = temp[1][:m]
+    perm[2][:, :m] = temp[2][:, :m]
     return qk, qe, [tuple(s) for s in segs]
 
 
@@ -257,6 +275,15 @@ def match_phase(ps=(1620, 9 * 1620)):
     return out
 
 
+# (label, query rows, [long, temp, perm] slots, the segment timed): the
+# default config's store capacities at the per-frame and the chunk shape, and
+# the permanent segment of augmented preloading (two annotated frames, each
+# with 11 augmentations: 24 frames of 1,620 slots)
+KERNEL_CASES = (('P=1620', 1620, (10128, 17820, 6480), 1),
+                ('P=14580', 9 * 1620, (10128, 17820, 6480), 1),
+                ('P=1620 augmented', 1620, (10128, 17820, 38880), 2))
+
+
 def kernel_phase():
     import torch
     from xmem2_tpu_torch.ops import readout_kernel as RK
@@ -265,20 +292,20 @@ def kernel_phase():
     dev = torch.device('cuda')
     k, gids = 30, (0, 1)
     rows = {}
-    for p in (1620, 9 * 1620):
-        qk, qe, segs = _segments(dev, p)
+    for label, p, seg_ns, timed in KERNEL_CASES:
+        qk, qe, segs = _segments(dev, p, seg_ns)
         sims = [get_similarity_padded(mk, ms, qk, qe, p, mk.shape[0])
                 for mk, ms, _, _ in segs]
         valids = [s[3] for s in segs]
 
         # K2: values, k-th counts, merge and stats bit-equal to plain
-        stats = _check_k2(RK, sims, valids, k, f'P={p}')
+        stats = _check_k2(RK, sims, valids, k, label)
         tau, rmax, invz = stats
         n_ties = sum(int(((s == tau[:, :1]) & v[0]).sum()) for s, v in
                      zip(sims, valids)) - p
-        log(f'[kernels] P={p}: K2 values, k-th counts, merge and stats '
-            f'bit-equal to plain; {n_ties} slots beyond one per row sit on '
-            f'the k-th value')
+        log(f'[kernels] {label}, segments {seg_ns}: K2 values, k-th counts, '
+            f'merge and stats bit-equal to plain; {n_ties} slots beyond one '
+            f'per row sit on the k-th value')
 
         # K1: readout (f32 and bf16 values) and usage, per segment
         err = {'topk_readout_float32': 0.0, 'topk_readout_bfloat16': 0.0,
@@ -289,8 +316,9 @@ def kernel_phase():
             want = RK.topk_usage_plain(sim, valid, tau, rmax, invz)
             rel = ((got - want).abs() / want.abs().clamp_min(1e-3)).max()
             err['topk_usage'] = max(err['topk_usage'], rel.item())
-        _overflow_cases(RK, qk, qe, sims, segs, gids, err)
-        log(f'[kernels] P={p}: max abs err readout f32 '
+        if seg_ns[2] < seg_ns[1]:     # the overflow cases need no second run
+            _overflow_cases(RK, qk, qe, sims, segs, gids, err)
+        log(f'[kernels] {label}: max abs err readout f32 '
             f'{err["topk_readout_float32"]:.3e} (tol {KERNEL_TOL["float32"]}), '
             f'bf16 {err["topk_readout_bfloat16"]:.3e} '
             f'(tol {KERNEL_TOL["bfloat16"]}); usage max rel err '
@@ -302,8 +330,8 @@ def kernel_phase():
         if err['topk_usage'] > 1e-4:
             raise AssertionError('K1 usage outside tolerance')
 
-        # timings at the largest segment (temp, N = 17820), one wrapper call
-        sim, (_, _, values, valid) = sims[1], segs[1]
+        # timings at one segment, one wrapper call
+        sim, (_, _, values, valid) = sims[timed], segs[timed]
         n = sim.shape[1]
         reps = 10 if p == 1620 else 3
         g = valid.shape[0]
@@ -312,7 +340,7 @@ def kernel_phase():
         # group's masked row
         k2_bytes = sim.numel() * 4 + valid.numel() + g * p * (k + 1) * 4
         masked = torch.where(valid[:, None, :], sim[None], -math.inf)
-        rows[('block_topk_candidates', p)] = dict(
+        rows[('block_topk_candidates', label)] = dict(
             ms=_time_ms(lambda: RK.block_topk_candidates(sim, valid, k), reps),
             plain_ms=_time_ms(
                 lambda: RK.block_topk_candidates_plain(sim, valid, k), reps),
@@ -329,7 +357,7 @@ def kernel_phase():
                       + valid.numel() + 3 * tau.numel() * 4
                       + len(gids) * p * v.shape[-1] * 4)
             flops = sum(2.0 * keep[gg] * v.shape[-1] for gg in gids)
-            rows[(name, p)] = dict(
+            rows[(name, label)] = dict(
                 ms=_time_ms(lambda: RK.topk_readout(
                     sim, v, valid, tau, rmax, invz, gids), reps),
                 plain_ms=_time_ms(lambda: RK.topk_readout_plain(
@@ -337,7 +365,7 @@ def kernel_phase():
                 library_ms=None,
                 bound=_bound_ms(nbytes, flops, str(vdt)[6:]),
                 max_abs_err=err[name])
-        rows[('topk_usage', p)] = dict(
+        rows[('topk_usage', label)] = dict(
             ms=_time_ms(lambda: RK.topk_usage(sim, valid, tau, rmax, invz),
                         reps),
             plain_ms=_time_ms(lambda: RK.topk_usage_plain(
@@ -346,9 +374,9 @@ def kernel_phase():
             bound=_bound_ms(sim.numel() * 4 + valid.numel() + 3 * tau.numel()
                             * 4 + n * 4, 2.0 * keep[0], 'float32'),
             max_abs_err=err['topk_usage'])
-        for (name, pp), r in sorted(rows.items()):
-            if pp == p:
-                log(f'[kernels] P={p} N={n} {name}: {r["ms"]:.4f} ms, plain '
+        for (name, lb), r in sorted(rows.items()):
+            if lb == label:
+                log(f'[kernels] {label} N={n} {name}: {r["ms"]:.4f} ms, plain '
                     f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]}, '
                     f'bound {r["bound"][0]:.4f} ms ({r["bound"][1]})')
         del sims, segs, stats
@@ -427,9 +455,62 @@ def synth_video(root: Path, h: int, w: int, n: int, second_at: int):
     return imgs, anns
 
 
-def _run(imgs, anns, out, ckpt, device, overwrite, frames=(0, 60)):
+@contextlib.contextmanager
+def _patched(module, name, wrap):
+    """module.name replaced by wrap(original) inside the block."""
+    orig = getattr(module, name)
+    setattr(module, name, wrap(orig))
+    try:
+        yield
+    finally:
+        setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def _cores():
+    """The InferenceCores run_on_video builds inside the block, in a list."""
+    from xmem2_tpu_torch.inference import run_on_video as R
+    made = []
+
+    def wrap(load):
+        def loaded(*a, **k):
+            out = load(*a, **k)
+            made.append(out[1])
+            return out
+        return loaded
+
+    with _patched(R, '_load_main_objects', wrap):
+        yield made
+
+
+def _timed(seconds: dict, key: str):
+    """A wrapper factory for _patched: adds the call's seconds, the device
+    synchronised at both ends, to seconds[key]."""
+    import torch
+
+    def wrap(fn):
+        def timed(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            seconds[key] = seconds.get(key, 0.0) + time.perf_counter() - t0
+            return out
+        return timed
+    return wrap
+
+
+def _launched(tag, counts):
+    """Fails unless every kernel launched during the run of `tag`."""
+    for name, c in counts.items():
+        if c == 0:
+            raise AssertionError(f'{tag}: kernel {name} never launched')
+
+
+def _run(imgs, anns, out, ckpt, device, overwrite, frames=(0, 60), **kw):
     """run_on_video with every probability map checked for NaN on its way
-    to the mask packer. Returns (seconds, frames written, non-finite)."""
+    to the mask packer; kw go to run_on_video. Returns (seconds, frames
+    written, non-finite)."""
     import torch
     from xmem2_tpu_torch.inference import core
     from xmem2_tpu_torch.inference.run_on_video import run_on_video
@@ -446,7 +527,7 @@ def _run(imgs, anns, out, ckpt, device, overwrite, frames=(0, 60)):
         t0 = time.perf_counter()
         run_on_video(str(imgs), str(anns), str(out), frames_with_masks=frames,
                      print_progress=False, save_overlay=False, device=device,
-                     overwrite_config=dict(overwrite, model=str(ckpt)))
+                     overwrite_config=dict(overwrite, model=str(ckpt)), **kw)
         if device == 'cuda':
             torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
@@ -479,16 +560,15 @@ def main_path_phase(work: Path, card: str):
             raise AssertionError(f'{tag}: {written} of {n} masks written')
         if bad:
             raise AssertionError(f'{tag}: {bad} non-finite probabilities')
-        for name, c in counts[tag].items():
-            if c == 0:
-                raise AssertionError(f'{tag}: kernel {name} never launched')
+        _launched(tag, counts[tag])
     return counts
 
 
-def profile_phase(work: Path, card: str):
-    """One default-mode run under torch.profiler: device time by kernel,
-    grouped, and the device's busy share of the run's wall time (the
-    profiler's own cost is inside that wall time)."""
+def profile_phase(work: Path, card: str, label='default mode', **run_kw):
+    """One default-mode run under torch.profiler (run_kw go to
+    run_on_video): device time by kernel, grouped, and the device's busy
+    share of the run's wall time (the profiler's own cost is inside that
+    wall time)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -497,7 +577,7 @@ def profile_phase(work: Path, card: str):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         seconds, _, _ = _run(imgs, anns, work / 'prof', work /
-                             'synth_xmem.pth', 'cuda', {})
+                             'synth_xmem.pth', 'cuda', {}, **run_kw)
     dev = []            # kernels only: an op's kernels are not counted twice
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -528,50 +608,285 @@ def profile_phase(work: Path, card: str):
         else:
             grp = 'elementwise, reductions, copies'
         groups[grp] = groups.get(grp, 0) + us
-    log(f'[profile] default mode, 120 frames at 854x480 on {card}: wall '
+    log(f'[profile] {label}, 120 frames at 854x480 on {card}: wall '
         f'{seconds:.3f} s under the profiler, device busy {total / 1e6:.3f} '
         f's ({100 * total / 1e6 / seconds:.1f}% of wall)')
     for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
         log(f'[profile]   {grp}: {us / 1e3:.1f} ms ({100 * us / total:.1f}%)'
             f', {us / 1e3 / 120:.3f} ms/frame')
-    for us, key, count in dev[:12]:
+    for us, key, count in dev[:12 if label == 'default mode' else 6]:
         log(f'[profile]   top: {us / 1e3:9.1f} ms  x{count:<6d} {key[:90]}')
     host = sorted(((e.self_cpu_time_total, e.key, e.count)
                    for e in prof.key_averages()
                    if e.device_type == DeviceType.CPU), reverse=True)
-    for us, key, count in host[:8]:
+    for us, key, count in host[:8 if label == 'default mode' else 4]:
         log(f'[profile]   host: {us / 1e3:9.1f} ms  x{count:<6d} {key[:80]}')
+
+
+def augment_phase(work: Path, card: str):
+    """The default run with augment_images_with_masks: both annotated frames
+    and 11 augmentations of each in permanent memory (24 frames)."""
+    from xmem2_tpu_torch.inference import run_on_video as R
+    from xmem2_tpu_torch.ops.readout_kernel import LAUNCHES, \
+        reset_launch_counts
+
+    n = 120
+    imgs, anns = work / 'video480' / 'JPEGImages', work / 'video480' / \
+        'Annotations'
+    seconds = {}
+    reset_launch_counts()
+    with _cores() as cores, _patched(R, '_preload_permanent_memory',
+                                     _timed(seconds, 'preload')):
+        run_s, written, bad = _run(imgs, anns, work / 'augment', work /
+                                   'synth_xmem.pth', 'cuda', {},
+                                   augment_images_with_masks=True)
+    counts = dict(LAUNCHES)
+    mm = cores[0].memory
+    log(f'[augment] {n} frames at 854x480, permanent memory {mm.perm_size} '
+        f'slots ({mm.perm_size // mm.HW} frames) in a store of '
+        f'{mm.perm.capacity}: {run_s:.3f} s = {n / run_s:.2f} frames/s, '
+        f'preload (host augmentation and encoding) {seconds["preload"]:.3f} '
+        f's on {card}; launches {counts}')
+    if written != n or bad:
+        raise AssertionError(f'augment: {written} of {n} masks, {bad} '
+                             f'non-finite probabilities')
+    if mm.perm_size != 24 * mm.HW or \
+            sorted(mm.frame_id_to_permanent_mem_idx) != [0, 60]:
+        raise AssertionError(f'augment: permanent memory holds '
+                             f'{mm.perm_size} slots, frames '
+                             f'{mm.frame_id_to_permanent_mem_idx}')
+    _launched('augment', counts)
+    return counts
+
+
+def select_phase(work: Path, card: str):
+    """select_k_next_best_annotation_candidates on the 480p video, reading
+    the masks of the default run."""
+    import numpy as np
+    import torch
+    from xmem2_tpu_torch.inference import run_on_video as R
+    from xmem2_tpu_torch.inference.frame_selection import frame_selection \
+        as FS
+
+    imgs, anns = work / 'video480' / 'JPEGImages', work / 'video480' / \
+        'Annotations'
+    seconds, dissims = {}, []
+
+    def record(fn):
+        def recorded(*a, **k):
+            out = fn(*a, **k)
+            dissims.append(out)
+            return out
+        return recorded
+
+    # the random weights may predict little foreground at 480p; a frame
+    # whose masks cover under min_mask_presence_percent (0.25%) scores 0,
+    # and once no frame scores more the greedy pick repeats frame 0, so the
+    # check admits every frame (the rule itself is held to JAX by
+    # tests/test_torch_frame_selection.py)
+    fg = np.array([m.mean() for m in R.read_foreground_masks(
+        work / 'default' / 'masks')])
+    log(f'[select] foreground share of the default run\'s masks: median '
+        f'{np.median(fg):.4%}, {int((fg < 0.0025).sum())} of {len(fg)} '
+        f'frames under 0.25%')
+    with _patched(R, 'extract_keys', _timed(seconds, 'extract_keys')), \
+            _patched(R, 'select_candidates_from_rows',
+                     _timed(seconds, 'select')), \
+            _patched(FS, 'cycle_dissimilarity', record):
+        chosen = R.select_k_next_best_annotation_candidates(
+            str(imgs), str(anns), masks_out_path=str(work / 'default'), k=5,
+            print_progress=False, previously_chosen_candidates=[0],
+            use_previously_predicted_masks=True, device='cuda',
+            min_mask_presence_percent=0.0,
+            overwrite_config={'model': str(work / 'synth_xmem.pth')})
+    d = torch.cat(dissims)
+    log(f'[select] k=5 of 120 frames at 854x480: chose {chosen}; '
+        f'extract_keys {seconds["extract_keys"]:.3f} s, selection '
+        f'{seconds["select"]:.3f} s ({d.numel()} frame pairs, dissimilarity '
+        f'{d.min().item():.4g}..{d.max().item():.4g}) on {card}')
+    if len(set(chosen)) != 5 or not all(0 < c < 120 for c in chosen):
+        raise AssertionError(f'select: chose {chosen}')
+    if not bool(torch.isfinite(d).all()):
+        raise AssertionError('select: non-finite dissimilarity (dmin)')
+
+
+def spill_phase(work: Path, card: str):
+    """A default-mode run with spill_long_term and memory settings under
+    which long-term memory evicts several times (a memory frame every 2
+    frames, long-term memory capped at 1,000 slots: 872 survive an eviction,
+    a consolidation adds 128 prototypes); then the cap raised to 2,000
+    through InferenceCore.update_config, which revives archived rows, and
+    one more step."""
+    import numpy as np
+    import torch
+    from PIL import Image
+    from xmem2_tpu_torch.memory import manager as MM
+    from xmem2_tpu_torch.ops.readout_kernel import LAUNCHES, \
+        reset_launch_counts
+
+    n = 120
+    imgs, anns = work / 'video480' / 'JPEGImages', work / 'video480' / \
+        'Annotations'
+    evictions = []
+
+    def count(evict):
+        def counted(store, max_size):
+            before = store.size
+            out = evict(store, max_size)
+            if store.size < before:
+                evictions.append(before - store.size)
+            return out
+        return counted
+
+    over = {'mem_every': 2, 'max_long_term_elements': 1000}
+    # the same settings without spill: what spilling itself costs
+    off_s, written, bad = _run(imgs, anns, work / 'spill_off', work /
+                               'synth_xmem.pth', 'cuda', over)
+    if written != n or bad:
+        raise AssertionError(f'spill off: {written} of {n} masks, {bad} '
+                             f'non-finite probabilities')
+    over['spill_long_term'] = True
+    reset_launch_counts()
+    with _cores() as cores, _patched(MM.ST, 'evict_by_usage', count):
+        run_s, written, bad = _run(imgs, anns, work / 'spill', work /
+                                   'synth_xmem.pth', 'cuda', over)
+    counts = dict(LAUNCHES)
+    core = cores[0]
+    mm = core.memory
+    archived, long_before = len(mm.archive), mm.long_size
+    core.update_config(dict(core.config, max_long_term_elements=2000))
+    revived = mm.long_size - long_before
+    reset_launch_counts()
+    frame = np.asarray(Image.open(imgs / 'frame_000000.jpg').convert('RGB'))
+    prob = core.step(frame)
+    torch.cuda.synchronize()
+    step_counts = dict(LAUNCHES)
+    log(f'[spill] {n} frames at 854x480, {len(evictions)} evictions of '
+        f'{evictions} rows: {run_s:.3f} s = {n / run_s:.2f} frames/s on '
+        f'{card} (the same settings without spill: {off_s:.3f} s = '
+        f'{n / off_s:.2f} frames/s); archive {archived} rows, {revived} revived by raising '
+        f'max_long_term_elements to 2000 (long-term memory {long_before} -> '
+        f'{mm.long_size} slots); launches {counts}, then {step_counts} in '
+        f'one step')
+    if written != n or bad:
+        raise AssertionError(f'spill: {written} of {n} masks, {bad} '
+                             f'non-finite probabilities')
+    if len(evictions) < 2 or archived == 0 or revived <= 0:
+        raise AssertionError(f'spill: {len(evictions)} evictions, '
+                             f'{archived} archived, {revived} revived')
+    if not bool(torch.isfinite(prob).all()):
+        raise AssertionError('spill: the step after revival is not finite')
+    _launched('spill', counts)
+    _launched('spill step', step_counts)
+    return counts
+
+
+def eval_phase(work: Path, card: str):
+    """python -m xmem2_tpu_torch.eval on a generic dataset of two 854x480
+    videos of 30 frames, once with --benchmark and once with
+    --save_scores."""
+    from xmem2_tpu_torch import eval as port_eval
+    from xmem2_tpu_torch.ops.readout_kernel import LAUNCHES, \
+        reset_launch_counts
+
+    root = work / 'generic'
+    for vid, second_at in (('a', 15), ('b', 30)):   # 'b': frame 0 only
+        imgs, anns = synth_video(work / f'src_{vid}', 480, 854, 30,
+                                 second_at)
+        (root / 'JPEGImages').mkdir(parents=True, exist_ok=True)
+        (root / 'Annotations').mkdir(parents=True, exist_ok=True)
+        imgs.rename(root / 'JPEGImages' / vid)
+        anns.rename(root / 'Annotations' / vid)
+    base = ['--dataset', 'G', '--generic_path', str(root), '--model',
+            str(work / 'synth_xmem.pth')]
+    out = {}
+    for tag, extra in (('benchmark', ['--benchmark']),
+                       ('save_scores', ['--save_scores'])):
+        reset_launch_counts()
+        stats = port_eval.main(base + ['--output', str(work / f'eval_{tag}')]
+                               + extra)
+        counts = dict(LAUNCHES)
+        masks = list((work / f'eval_{tag}').rglob('*.png'))
+        scores = list((work / f'eval_{tag}').rglob('*.npz'))
+        log(f'[eval] --{tag}: {stats["frames"]} frames of two 854x480 videos '
+            f'in {stats["seconds"]:.3f} s = {stats["fps"]:.2f} frames/s, peak '
+            f'memory {stats["peak_memory_mb"]:.0f} MB on {card}; '
+            f'{len(masks)} masks, {len(scores)} score files; launches '
+            f'{counts}')
+        want_scores = 60 if tag == 'save_scores' else 0
+        if stats['frames'] != 60 or len(masks) != 60 or \
+                len(scores) != want_scores:
+            raise AssertionError(f'eval --{tag}: {stats["frames"]} frames, '
+                                 f'{len(masks)} masks, {len(scores)} scores')
+        _launched(f'eval --{tag}', counts)
+        out[tag] = stats
+    return out
+
+
+def _worst_mask_diff(dir_a: Path, dir_b: Path) -> float:
+    """The largest share of pixels that differ in one frame between two
+    runs' masks."""
+    import numpy as np
+    from PIL import Image
+    worst = 0.0
+    files = sorted((dir_a / 'masks').glob('*.png'))
+    for f in files:
+        a = np.asarray(Image.open(f).convert('RGB'))
+        b = np.asarray(Image.open(dir_b / 'masks' / f.name).convert('RGB'))
+        worst = max(worst, float(np.any(a != b, axis=-1).mean()))
+    return worst if files else 1.0
 
 
 def small_check_phase(work: Path):
     """The port on the card against the port on the CPU (plain version of
     every kernel), f32, on a small video: masks equal up to 0.1% of pixels
-    (argmax near-ties under another float32 summation order)."""
-    import numpy as np
-    from PIL import Image
+    (argmax near-ties under another float32 summation order), plain and
+    with augment_images_with_masks; the same annotation candidates chosen;
+    with spill_long_term (a memory frame every frame, so long-term memory
+    evicts), the same number of archived rows."""
+    from xmem2_tpu_torch.inference.run_on_video import \
+        select_k_next_best_annotation_candidates
 
     imgs, anns = synth_video(work / 'video_small', 64, 96, 12, 6)
     over = {'size': -1, 'mem_every': 2, 'max_mid_term_frames': 4,
             'min_mid_term_frames': 2, 'num_prototypes': 16,
             'max_long_term_elements': 24, 'compute_dtype': 'float32',
             'value_store_dtype': 'float32'}
+    spill = dict(over, spill_long_term=True, mem_every=1)
     ckpt = work / 'synth_xmem.pth'
+    chosen, archived = {}, {}
     for dev in ('cuda', 'cpu'):
-        _, written, bad = _run(imgs, anns, work / f'small_{dev}', ckpt, dev,
-                               over, frames=(0, 6))
-        if written != 12 or bad:
-            raise AssertionError(f'small video on {dev}: {written} masks, '
-                                 f'{bad} non-finite')
-    worst = 0.0
-    for f in sorted((work / 'small_cpu' / 'masks').glob('*.png')):
-        a = np.asarray(Image.open(f).convert('RGB'))
-        b = np.asarray(Image.open(work / 'small_cuda' / 'masks' / f.name)
-                       .convert('RGB'))
-        worst = max(worst, float(np.any(a != b, axis=-1).mean()))
-    log(f'[check] card vs CPU masks on the small video: worst frame '
-        f'{worst:.4%} of pixels differ (limit 0.1%)')
-    if worst > 1e-3:
+        for tag, o, kw in (('plain', over, {}),
+                           ('augment', over,
+                            {'augment_images_with_masks': True})):
+            _, written, bad = _run(imgs, anns, work / f'small_{tag}_{dev}',
+                                   ckpt, dev, o, frames=(0, 6), **kw)
+            if written != 12 or bad:
+                raise AssertionError(f'small video, {tag}, on {dev}: '
+                                     f'{written} masks, {bad} non-finite')
+        with _cores() as cores:
+            _run(imgs, anns, work / f'small_spill_{dev}', ckpt, dev, spill,
+                 frames=(0, 6))
+        archived[dev] = len(cores[0].memory.archive)
+    for dev in ('cuda', 'cpu'):     # both from the CPU run's masks
+        chosen[dev] = select_k_next_best_annotation_candidates(
+            str(imgs), str(anns), masks_out_path=str(work / 'small_plain_cpu'),
+            k=3, print_progress=False, previously_chosen_candidates=[0],
+            device=dev, overwrite_config=dict(over, model=str(ckpt)))
+    worst = {tag: _worst_mask_diff(work / f'small_{tag}_cpu',
+                                   work / f'small_{tag}_cuda')
+             for tag in ('plain', 'augment')}
+    log(f'[check] card vs CPU on the small video: worst frame '
+        f'{worst["plain"]:.4%} of pixels differ, augmented '
+        f'{worst["augment"]:.4%} (limit 0.1%); candidates {chosen}; spill '
+        f'archive rows {archived}')
+    if max(worst.values()) > 1e-3:
         raise AssertionError('card and CPU masks disagree')
+    if chosen['cuda'] != chosen['cpu']:
+        raise AssertionError('card and CPU choose other candidates')
+    if archived['cuda'] != archived['cpu'] or archived['cpu'] == 0:
+        raise AssertionError(f'spill archives differ or are empty: '
+                             f'{archived}')
 
 
 def kernels_json(rows, launches):
@@ -588,7 +903,7 @@ def kernels_json(rows, launches):
     }
     out = []
     for name, (source, replaces) in meta.items():
-        r = rows[(name, 1620)]
+        r = rows[(name, 'P=1620')]
         out.append({
             'name': name, 'route': 'cuda', 'source': source,
             'replaces': replaces,
@@ -637,6 +952,12 @@ def main(argv=None) -> int:
     with tempfile.TemporaryDirectory() as work:
         counts = main_path_phase(Path(work), card)
         profile_phase(Path(work), card)
+        augment_phase(Path(work), card)
+        profile_phase(Path(work), card, 'augmented',
+                      augment_images_with_masks=True)
+        select_phase(Path(work), card)
+        spill_phase(Path(work), card)
+        eval_phase(Path(work), card)
         small_check_phase(Path(work))
 
     default, exact = counts.values()

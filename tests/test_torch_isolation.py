@@ -7,6 +7,7 @@ import subprocess
 import sys
 from pathlib import Path
 
+import numpy as np
 import pytest
 import torch
 
@@ -34,6 +35,12 @@ bad = sorted(m for m in sys.modules
              if m == 'xmem2_tpu' or m.startswith('xmem2_tpu.'))
 assert not bad, bad
 assert len(names) > 20, names
+missing = {'xmem2_tpu_torch.eval', 'xmem2_tpu_torch.run_experiments',
+           'xmem2_tpu_torch.memory.spill', 'xmem2_tpu_torch.utils.metrics',
+           'xmem2_tpu_torch.inference.data.test_datasets',
+           'xmem2_tpu_torch.inference.frame_selection.frame_selection',
+           'xmem2_tpu_torch.inference.frame_selection.utils'} - set(names)
+assert not missing, missing
 print('imported', len(names))
 """)
     assert out.returncode == 0, out.stderr
@@ -54,10 +61,15 @@ def test_chip_smoke_needs_a_card_and_no_jax():
 def test_entry_points_raise_without_cuda(tmp_path):
     if torch.cuda.is_available():
         pytest.skip('a CUDA device is present')
+    from xmem2_tpu_torch import eval as port_eval
+    from xmem2_tpu_torch.bridge.torch_params import load_model
     from xmem2_tpu_torch.config import VIDEO_INFERENCE_CONFIG
     from xmem2_tpu_torch.inference.core import InferenceCore
+    from xmem2_tpu_torch.inference.frame_selection import \
+        select_next_candidates
     from xmem2_tpu_torch.inference.net import XMemNet
-    from xmem2_tpu_torch.inference.run_on_video import run_on_video
+    from xmem2_tpu_torch.inference.run_on_video import (
+        run_on_video, select_k_next_best_annotation_candidates)
     from xmem2_tpu_torch.models.network import XMem
 
     with pytest.raises(RuntimeError, match='CUDA'):
@@ -67,6 +79,18 @@ def test_entry_points_raise_without_cuda(tmp_path):
         InferenceCore(net, dict(VIDEO_INFERENCE_CONFIG))
     with pytest.raises(RuntimeError, match='CUDA'):
         run_on_video(tmp_path, tmp_path, tmp_path / 'out')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        select_k_next_best_annotation_candidates(tmp_path, tmp_path,
+                                                 tmp_path / 'out')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        select_next_candidates(np.zeros((2, 1, 1, 4)), np.ones((2, 1, 1, 1)),
+                               np.ones((2, 1, 1, 4)), [np.ones((1, 4, 4))] * 2,
+                               1)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        port_eval.main(['--dataset', 'G', '--generic_path', str(tmp_path),
+                        '--output', str(tmp_path / 'eval')])
+    with pytest.raises(RuntimeError, match='CUDA'):
+        load_model(str(tmp_path / 'ckpt.pth'))
 
 
 def test_memory_manager_defaults_to_cuda():
@@ -83,9 +107,35 @@ def test_memory_manager_defaults_to_cuda():
     assert mm.device == torch.device('cpu')
 
 
-def test_unported_options_raise():
+def test_model_loading_defaults_to_cuda(tmp_path):
+    """build_model and load_model put the weights on the card unless asked
+    for the CPU: without CUDA their default raises."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    from xmem2_tpu_torch.bridge.torch_params import build_model, load_model
+    from xmem2_tpu_torch.models.network import XMem
+    dims = (8, 16, 4)
+    sd = {k: v.numpy() for k, v in XMem(*dims).state_dict().items()}
+    with pytest.raises(RuntimeError, match='CUDA'):
+        build_model(sd, dims)
+    torch.save({k: torch.from_numpy(v) for k, v in sd.items()},
+               tmp_path / 'ckpt.pth')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        load_model(str(tmp_path / 'ckpt.pth'))
+    model = load_model(str(tmp_path / 'ckpt.pth'), device='cpu')
+    assert next(model.parameters()).device == torch.device('cpu')
+
+
+@pytest.mark.parametrize('over,ported', [({'memory_shards': 2}, False),
+                                         ({'spill_long_term': True}, True)])
+def test_unported_options_raise(over, ported):
+    """Options not ported yet raise, naming their ROADMAP item; spill is
+    ported."""
     from xmem2_tpu_torch.config import VIDEO_INFERENCE_CONFIG
     from xmem2_tpu_torch.memory.manager import MemoryManager
-    for over in ({'memory_shards': 2}, {'spill_long_term': True}):
+    config = dict(VIDEO_INFERENCE_CONFIG, **over)
+    if ported:
+        assert MemoryManager(config, device='cpu').archive is not None
+    else:
         with pytest.raises(NotImplementedError, match='ROADMAP'):
-            MemoryManager(dict(VIDEO_INFERENCE_CONFIG, **over), device='cpu')
+            MemoryManager(config, device='cpu')

@@ -48,7 +48,7 @@ def setup():
     sd = synth_state_dict(names, shapes)
     jparams = JB.convert_state_dict(sd)
     tsd, dims = TB.params_from_jax(jparams)
-    model = TB.build_model(tsd, dims)
+    model = TB.build_model(tsd, dims, device='cpu')
     image = g['in/image']
     jkey = XN.encode_key(jparams, jnp.asarray(np.moveaxis(image, 1, -1)))
     with torch.no_grad():
@@ -81,7 +81,7 @@ def test_bridge_npz_and_pth(setup, tmp_path):
     pth['value_encoder.conv1.weight'] = pth['value_encoder.conv1.weight'][:, :4]
     pth['key_encoder.bn1.num_batches_tracked'] = torch.tensor(7)
     torch.save(pth, tmp_path / 'ckpt.pth')
-    model = TB.load_model(str(tmp_path / 'ckpt.pth'))
+    model = TB.load_model(str(tmp_path / 'ckpt.pth'), device='cpu')
     w = model.value_encoder.conv1.weight
     assert w.shape == (64, 5, 7, 7)
     assert not w[:, 4].any()                   # zero-padded 5th channel

@@ -25,6 +25,17 @@ CONFIG = {'size': -1, 'top_k': 30, 'mem_every': 2, 'max_mid_term_frames': 4,
           'value_store_dtype': 'float32'}
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_torch_thread():
+    """torch on one thread while this module runs: the suite runs files in
+    parallel worker processes, and torch's intra-op threads in each spin
+    against the others' (several times the CPU time on a shared machine)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 def synth_params():
     """Golden-conditioned synthetic weights at the published widths, with
     the key/shrinkage projections tamed as tests/test_e2e_parity.py:46-47
@@ -160,7 +171,8 @@ def _make_core(sd, cfg):
     from xmem2_tpu_torch.inference.core import InferenceCore
     from xmem2_tpu_torch.inference.net import XMemNet
     sd, dims = convert_state_dict(sd)
-    net = XMemNet(build_model(sd, dims), 'float32', device='cpu')
+    net = XMemNet(build_model(sd, dims, device='cpu'), 'float32',
+                  device='cpu')
     core = InferenceCore(net, cfg, device='cpu')
     core.set_all_labels([1])
     return core

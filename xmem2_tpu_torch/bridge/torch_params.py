@@ -16,6 +16,7 @@ from typing import Dict, Mapping, Tuple
 import numpy as np
 import torch
 
+from xmem2_tpu_torch.config import resolve_device
 from xmem2_tpu_torch.models.network import XMem
 
 Dims = Tuple[int, int, int]   # key_dim, value_dim, hidden_dim
@@ -100,11 +101,13 @@ def load_state_dict_file(path: str) -> Tuple[Dict[str, np.ndarray], Dims]:
 
 
 def build_model(sd: Mapping[str, np.ndarray], dims: Dims,
-                device='cpu') -> XMem:
-    """An XMem module on `device` holding the state dict (float32). The
-    module is built on the meta device and takes the checkpoint's tensors
-    as they are: no random initialisation to overwrite (0.5 s for the
-    ResNet-50/18 encoders)."""
+                device=None) -> XMem:
+    """An XMem module holding the state dict (float32) on `device`: CUDA
+    unless the caller passes another (config.resolve_device). The module is
+    built on the meta device and takes the checkpoint's tensors as they
+    are: no random initialisation to overwrite (0.5 s for the ResNet-50/18
+    encoders)."""
+    device = resolve_device(device)
     with torch.device('meta'):
         model = XMem(*dims)
     model.load_state_dict({k: torch.from_numpy(np.require(v, np.float32,
@@ -113,6 +116,9 @@ def build_model(sd: Mapping[str, np.ndarray], dims: Dims,
     return model.to(device).eval().requires_grad_(False)
 
 
-def load_model(path: str, device='cpu') -> XMem:
+def load_model(path: str, device=None) -> XMem:
+    """A .npz or .pth checkpoint as an XMem module on `device` (CUDA
+    unless the caller passes another)."""
+    device = resolve_device(device)
     sd, dims = load_state_dict_file(path)
     return build_model(sd, dims, device)

@@ -2,8 +2,8 @@
 
 VIDEO_INFERENCE_CONFIG has the keys and defaults of xmem2_tpu/config.py
 (reference util/configuration.py:138-162), so `overwrite_config` dicts keep
-working. Two keys are accepted only at their defaults in this port:
-`memory_shards` (0) and `spill_long_term` (False).
+working. One key is accepted only at its default in this port:
+`memory_shards` (0).
 """
 
 import torch
@@ -48,8 +48,9 @@ VIDEO_INFERENCE_CONFIG = {
     # Capacity (in frames) the permanent-memory buffer grows by.
     'permanent_buffer_frames': 4,
     'max_object_groups': 4,
-    # Not ported yet: ROADMAP.md Queue 1 items 11 (spill) and 12 (sharding).
+    # Archive evicted long-term rows in host memory (memory/spill.py).
     'spill_long_term': False,
+    # Not ported yet: ROADMAP.md Queue 1 item 12 (sharding).
     'memory_shards': 0,
 }
 
@@ -60,10 +61,6 @@ def check_supported(config: dict):
         raise NotImplementedError(
             'memory_shards > 1 (multi-GPU memory sharding) is not ported yet: '
             'ROADMAP.md Queue 1 item 12')
-    if bool(config.get('spill_long_term', False)):
-        raise NotImplementedError(
-            'spill_long_term (host spill of evicted long-term memory) is not '
-            'ported yet: ROADMAP.md Queue 1 item 11')
 
 
 def resolve_device(device=None) -> torch.device:

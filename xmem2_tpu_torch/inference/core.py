@@ -84,6 +84,15 @@ class InferenceCore:
         image, self.pad = pad_divide_by(self._image(image), 16)
         return image[None]
 
+    @torch.no_grad()
+    def encode_frame_key(self, image):
+        """image [H, W, 3] float or raw uint8 -> (key [1, Ck, h, w],
+        shrinkage [1, 1, h, w], selection [1, Ck, h, w]), float32 on the
+        device (JAX core.py:261-268)."""
+        key, shrinkage, selection, *_ = self.network.encode_key(
+            self._padded(image))
+        return key, shrinkage, selection
+
     # -- steps ------------------------------------------------------------------
     @torch.no_grad()
     def step(self, image, mask: Optional[torch.Tensor] = None,

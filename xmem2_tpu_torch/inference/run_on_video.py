@@ -2,19 +2,24 @@
 
 Counterpart of xmem2_tpu/inference/run_on_video.py (reference
 inference/run_on_video.py: run_on_video :247, _inference_on_video :31,
-_preload_permanent_memory :201). Runs on CUDA unless the caller passes
-device='cpu'. Annotated frames are preloaded into permanent memory; runs of
-steady-state frames go through InferenceCore.step_chunk; masks are resized,
-argmaxed and bit-packed on the device and copied back `pipeline_depth`
-frames behind, so the copy overlaps compute on the next frames.
+_preload_permanent_memory :201, select_k_next_best_annotation_candidates
+:285). Runs on CUDA unless the caller passes device='cpu'. Annotated frames
+are preloaded into permanent memory (optionally with 11 augmented copies
+each); runs of steady-state frames go through InferenceCore.step_chunk;
+masks are resized, argmaxed and bit-packed on the device and copied back
+`pipeline_depth` frames behind, so the copy overlaps compute on the next
+frames.
 """
 
 import os
 from collections import deque
+from pathlib import Path
+from tempfile import TemporaryDirectory
 from time import perf_counter
 from typing import Iterable, List, Optional, Union
 from warnings import warn
 
+import numpy as np
 import torch
 from PIL import Image
 
@@ -23,21 +28,22 @@ from xmem2_tpu_torch.config import VIDEO_INFERENCE_CONFIG, resolve_device
 from xmem2_tpu_torch.inference.core import InferenceCore
 from xmem2_tpu_torch.inference.data.mask_mapper import MaskMapper
 from xmem2_tpu_torch.inference.data.video_reader import VideoReader
+from xmem2_tpu_torch.inference.frame_selection.frame_selection import \
+    select_candidates_from_rows
+from xmem2_tpu_torch.inference.frame_selection.utils import (
+    extract_keys, get_determenistic_augmentations)
 from xmem2_tpu_torch.inference.net import XMemNet
 from xmem2_tpu_torch.inference.postprocess import unpack_mask
 from xmem2_tpu_torch.utils.image_saver import ParallelImageSaver
 from xmem2_tpu_torch.utils.iou import compute_array_iou
-
-_FRAME_SELECTION = ('frame selection is not ported yet: ROADMAP.md Queue 1 '
-                    'item 8')
 
 
 def _load_main_objects(imgs_in_path, masks_in_path, config, device):
     model_path = config.get('model')
     if model_path is None or not os.path.exists(str(model_path)):
         raise FileNotFoundError(f'model checkpoint not found: {model_path}')
-    network = XMemNet(load_model(model_path), config.get('compute_dtype',
-                                                         'auto'), device)
+    network = XMemNet(load_model(model_path, device),
+                      config.get('compute_dtype', 'auto'), device)
     processor = InferenceCore(network, config=config, device=device)
     return MaskMapper(), processor, _create_reader(imgs_in_path,
                                                    masks_in_path, config)
@@ -62,8 +68,11 @@ def _preload_permanent_memory(frames_to_put_in_permanent_memory: List[int],
                               vid_reader: VideoReader, mapper: MaskMapper,
                               processor: InferenceCore,
                               augment_images_with_masks: bool = False):
-    if augment_images_with_masks:
-        raise NotImplementedError(_FRAME_SELECTION)
+    """Each frame's image and mask into permanent memory under its index;
+    with augment_images_with_masks, also the 11 'best_all' augmentations of
+    each (JAX run_on_video.py:97-113), without an index (ti=None): the image
+    is augmented in raw space, then normalised and resized on the host; the
+    mask is augmented after its resize."""
     total_preloading_time = 0.0
     at_least_one_mask_loaded = False
     for j in frames_to_put_in_permanent_memory:
@@ -82,6 +91,16 @@ def _preload_permanent_memory(frames_to_put_in_permanent_memory: List[int],
         processor.set_all_labels(list(mapper.remappings.values()))
         a = perf_counter()
         processor.put_to_permanent_memory(frame_rgb, msk, ti=j)
+        if augment_images_with_masks:
+            # translate_distance comes from the resized (H, W), as in the
+            # reference (run_on_video.py:232-233); frame_rgb may be the raw
+            # frame under device preprocessing and must not be used here
+            augs = get_determenistic_augmentations(
+                (msk.shape[-2], msk.shape[-1], 3), msk, subset='best_all')
+            for img_aug, mask_aug in augs:
+                processor.put_to_permanent_memory(
+                    vid_reader.im_transform(img_aug(sample.raw_image_pil)),
+                    mask_aug(np.asarray(msk)))
         total_preloading_time += perf_counter() - a
         at_least_one_mask_loaded = True
     return at_least_one_mask_loaded, total_preloading_time
@@ -129,8 +148,6 @@ def _inference_on_video(frames_with_masks, imgs_in_path, masks_in_path,
                         object_color_if_single_object=(255, 255, 255),
                         print_fps=False, image_saving_max_queue_size=200,
                         device=None):
-    if augment_images_with_masks:
-        raise NotImplementedError(_FRAME_SELECTION)
     device = resolve_device(device)
     frames_with_masks = set(frames_with_masks)
     config = VIDEO_INFERENCE_CONFIG.copy()
@@ -143,7 +160,8 @@ def _inference_on_video(frames_with_masks, imgs_in_path, masks_in_path,
 
     preload = [0] if original_memory_mechanism else sorted(frames_with_masks)
     loaded, total_preloading_time = _preload_permanent_memory(
-        preload, vid_reader, mapper, processor)
+        preload, vid_reader, mapper, processor,
+        augment_images_with_masks=augment_images_with_masks)
     if not loaded:
         raise ValueError('No valid masks provided!')
 
@@ -274,6 +292,77 @@ def run_on_video(
         device=device, **kwargs)
 
 
-def select_k_next_best_annotation_candidates(*args, **kwargs):
-    """Annotation-candidate selection (reference run_on_video.py:285-370)."""
-    raise NotImplementedError(_FRAME_SELECTION)
+def read_foreground_masks(masks_dir: Union[str, os.PathLike]
+                          ) -> List[np.ndarray]:
+    """The masks run_on_video saved (RGB PNGs, sorted by name) as [1, H, W]
+    float32 foreground masks: 1.0 where any channel is non-zero, else 0.0.
+
+    This departs from the JAX package on purpose: its read-back,
+    `np.asarray(Image.open(p), np.float32)[None] / 255`
+    (xmem2_tpu/inference/run_on_video.py:368, :382), gives [1, H, W, 3] for
+    the RGB files its own run_on_video writes, which its
+    select_next_candidates cannot resize (ValueError at
+    frame_selection.py:97). The union of the objects is what
+    select_next_candidates computes from [O, H, W] masks anyway
+    (frame_selection.py:88)."""
+    return [np.asarray(Image.open(p).convert('RGB')).any(axis=-1)[None]
+            .astype(np.float32)
+            for p in sorted(Path(masks_dir).iterdir())]
+
+
+def select_k_next_best_annotation_candidates(
+    imgs_in_path: Union[str, os.PathLike],
+    masks_in_path: Union[str, os.PathLike],
+    masks_out_path: Optional[Union[str, os.PathLike]] = None,
+    k: int = 5,
+    print_progress=True,
+    previously_chosen_candidates=(0,),
+    use_previously_predicted_masks=True,
+    alpha=0.5,
+    min_mask_presence_percent=0.25,
+    device=None,
+    **kwargs,
+) -> List[int]:
+    """The k frames best to annotate next (signature of the reference,
+    run_on_video.py:285-370, plus `device`: CUDA unless 'cpu' is passed).
+
+    With use_previously_predicted_masks the masks are read from
+    `masks_out_path`/masks; without, run_on_video first propagates the
+    previously chosen annotations (into `masks_out_path`, or a temporary
+    directory). kwargs go to run_on_video; their `overwrite_config` also
+    configures the key extraction (model, size). Masks are read back as
+    foreground masks (read_foreground_masks), not as the JAX package reads
+    them. Returns the new frame indices."""
+    device = resolve_device(device)
+    config = VIDEO_INFERENCE_CONFIG.copy()
+    config.update(kwargs.get('overwrite_config') or {})
+    _, processor, vid_reader = _load_main_objects(
+        imgs_in_path, masks_in_path, config, device)
+    keys, shrinkages, selections = extract_keys(
+        vid_reader, processor, print_progress=print_progress)
+
+    with TemporaryDirectory() as tmp:
+        if use_previously_predicted_masks:
+            if masks_out_path is None:
+                raise ValueError(
+                    'use_previously_predicted_masks=True needs the path of '
+                    'the previously predicted masks in masks_out_path')
+            masks = read_foreground_masks(Path(masks_out_path) / 'masks')
+        else:
+            out = Path(tmp if masks_out_path is None else masks_out_path)
+            run_on_video(imgs_in_path, masks_in_path, out,
+                         frames_with_masks=previously_chosen_candidates,
+                         compute_iou=False, print_progress=print_progress,
+                         device=device, **kwargs)
+            masks = read_foreground_masks(out / 'masks')
+    if len(masks) != len(keys):
+        raise FileNotFoundError(
+            f'{len(masks)} masks for {len(keys)} frames')
+
+    n, ck, h, w = keys.shape
+    return select_candidates_from_rows(
+        keys.flatten(2).mT, shrinkages.flatten(1), selections.flatten(2).mT,
+        (h, w), masks, k,
+        previously_chosen_candidates=list(previously_chosen_candidates),
+        print_progress=print_progress, alpha=alpha, only_new_candidates=True,
+        min_mask_presence_percent=min_mask_presence_percent)

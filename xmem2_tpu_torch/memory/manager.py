@@ -4,7 +4,8 @@ consolidation.
 Counterpart of xmem2_tpu/memory/manager.py (reference
 inference/memory_manager.py: match_memory :61, add_memory :212,
 compress_features :316, consolidation :349, update/remove permanent
-:192/:204, copy_perm_mem_only :392).
+:192/:204, copy_perm_mem_only :392), with the JAX package's host spill of
+evicted long-term rows (`spill_long_term`, memory/spill.py).
 
 The readout path follows the device and nothing else: CUDA tensors go through
 the hand-written kernels (ops/readout_kernel.py), CPU tensors through their
@@ -29,11 +30,13 @@ reference bugs):
 
 from typing import Dict, List, Optional, Tuple
 
+import numpy as np
 import torch
 
 from xmem2_tpu_torch.config import check_supported, resolve_device, \
     resolve_dtype_name, torch_dtype
 from xmem2_tpu_torch.memory import store as ST
+from xmem2_tpu_torch.memory.spill import HostArchive
 from xmem2_tpu_torch.memory.store import StoreBuffers
 from xmem2_tpu_torch.ops.readout_kernel import fused_topk_readout_multi
 from xmem2_tpu_torch.ops.similarity import get_similarity, masked_softmax
@@ -141,6 +144,9 @@ class MemoryManager:
         # the reference's fp16 autocast); float32 for parity runs
         self.value_dtype = torch_dtype(resolve_dtype_name(
             config.get('value_store_dtype', 'auto'), self.device))
+        # evicted long-term rows go to a host archive instead of away
+        self.spill_long_term = bool(config.get('spill_long_term', False))
+        self.archive = HostArchive() if self.spill_long_term else None
 
         self.CK = self.CV = None
         self.H = self.W = self.HW = None
@@ -175,10 +181,21 @@ class MemoryManager:
             raise ValueError('enable_long_term cannot change on a live memory')
         self.enable_long_term_usage = config['enable_long_term_count_usage']
         if self.enable_long_term:
+            old_max_long = self.max_long_elements
             self.max_mt_frames = config['max_mid_term_frames']
             self.min_mt_frames = config['min_mid_term_frames']
             self.num_prototypes = config['num_prototypes']
             self.max_long_elements = config['max_long_term_elements']
+            # a raised cap needs the room (the store is allocated at the
+            # cap) and is the moment to pull spilled rows back (JAX
+            # manager.py:334-344)
+            if self.long is not None and self.max_long_elements > old_max_long:
+                need = self.max_long_elements + self.num_prototypes
+                if self.long.capacity < need:
+                    self.long = ST.grow(self.long, need,
+                                        self.long.num_objects,
+                                        self.long.num_groups)
+                self.revive_from_archive()
 
     # -- helpers -----------------------------------------------------------
     @property
@@ -334,9 +351,69 @@ class MemoryManager:
         (eviction + consolidation, reference memory_manager.py:272-281)."""
         if self.enable_long_term and self.temp_size >= self.max_work_elements:
             if self.long_size >= self.max_long_elements - self.num_prototypes:
-                ST.evict_by_usage(self.long,
-                                  self.max_long_elements - self.num_prototypes)
+                max_keep = self.max_long_elements - self.num_prototypes
+                if self.spill_long_term:
+                    self._spill_evicted(max_keep)
+                ST.evict_by_usage(self.long, max_keep)
             self.compress_features()
+
+    def _spill_evicted(self, max_keep: int):
+        """Archive exactly the rows the following ST.evict_by_usage drops
+        (ST.eviction_keep, the rule it applies), with their usage as revival
+        priority, in one device-to-host copy (JAX manager.py:603-623)."""
+        long = self.long
+        keep = ST.eviction_keep(long, max_keep)
+        if keep is None:
+            return
+        n, drop = long.size, ~keep
+        o, g, ck, cv = (long.num_objects, long.num_groups, long.key.shape[1],
+                        long.value.shape[2])
+        rows = torch.cat([
+            long.key[:n][drop], long.shrinkage[:n][drop, None],
+            ST.usage(long)[:n][drop, None],
+            long.val_valid[:, :n][:, drop].T.float(),
+            long.value[:, :n][:, drop].float().transpose(0, 1).flatten(1),
+        ], dim=1).cpu().numpy()
+        key, shrinkage, use, valid, value = np.split(
+            rows, np.cumsum([ck, 1, 1, g]), axis=1)
+        self.archive.archive(
+            key, shrinkage[:, 0],
+            value.reshape(-1, o, cv).transpose(1, 0, 2), valid.T > 0.5,
+            use[:, 0])
+
+    def revive_from_archive(self, query_key: Optional[torch.Tensor] = None,
+                            max_elements: Optional[int] = None) -> int:
+        """Re-upload the most relevant archived long-term rows into free
+        long-term capacity (JAX manager.py:625-648). query_key: the current
+        frame's key [1, Ck, h, w] (or [P, Ck]) to rank the rows by
+        (HostArchive.scores); without it the most used rows revive. Returns
+        how many rows were revived."""
+        if not self.spill_long_term or self.archive.empty or self.long is None:
+            return 0
+        free = (self.max_long_elements - self.num_prototypes) - self.long_size
+        n = free if max_elements is None else min(free, max_elements)
+        if n <= 0:
+            return 0
+        qk = None
+        if query_key is not None:
+            q = query_key[0].flatten(1).T if query_key.dim() == 4 \
+                else query_key
+            qk = q.float().cpu().numpy()
+        rows = self.archive.take_top(n, qk)
+        if rows is None:
+            return 0
+        key, shrinkage, value, val_valid = (
+            torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+            for a in rows)
+        # objects and groups that appeared after the rows were archived have
+        # no data in them
+        m = key.shape[0]
+        v = value.new_zeros((self.long.num_objects, m, value.shape[2]))
+        v[:value.shape[0]] = value
+        e = val_valid.new_zeros((self.long.num_groups, m))
+        e[:val_valid.shape[0]] = val_valid
+        ST.append(self.long, key, shrinkage, None, v, e)
+        return m
 
     def compress_features(self):
         """Consolidate working memory into long-term prototypes."""

@@ -152,17 +152,26 @@ def usage(store: StoreBuffers) -> torch.Tensor:
     return store.use_count / store.life_count
 
 
-def evict_by_usage(store: StoreBuffers, max_size: int) -> StoreBuffers:
-    """Keep at most max_size slots, dropping the least used, in place
-    (reference remove_obsolete_features, kv_memory_store.py:160-181:
-    survivors are strictly above the k-th smallest usage; order kept).
-    Validity masks carry multi-group stores along."""
+def eviction_keep(store: StoreBuffers,
+                  max_size: int) -> Optional[torch.Tensor]:
+    """Which occupied slots evict_by_usage(store, max_size) keeps (bool
+    [size]), or None when it drops nothing: survivors are strictly above
+    the k-th smallest usage, k = size - max_size (reference
+    remove_obsolete_features, kv_memory_store.py:160-181)."""
     n_remove = store.size - max_size
     if n_remove <= 0:
-        return store
+        return None
     u = usage(store)[:store.size]
     threshold = torch.sort(u).values[n_remove - 1]
-    return _compact(store, u > threshold)
+    return u > threshold
+
+
+def evict_by_usage(store: StoreBuffers, max_size: int) -> StoreBuffers:
+    """Keep at most max_size slots, dropping the least used, in place
+    (eviction_keep; order kept). Validity masks carry multi-group stores
+    along."""
+    keep = eviction_keep(store, max_size)
+    return store if keep is None else _compact(store, keep)
 
 
 def grow(store: StoreBuffers, new_capacity: int, new_num_objects: int,

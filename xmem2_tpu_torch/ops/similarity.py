@@ -48,19 +48,22 @@ def get_similarity(mk: torch.Tensor, ms: Optional[torch.Tensor],
 
     With selection:   sim[p,n] = -sum_c qe[p,c] * (mk[n,c] - qk[p,c])^2
     Without:          sim[p,n] = -||mk[n]||^2 + 2 mk[n].qk[p]
-    Then scaled by ms[n] / sqrt(Ck)."""
+    Then scaled by ms[n] / sqrt(Ck).
+
+    Leading batch dimensions broadcast (mk [B, N, Ck] with ms [B, N],
+    qk/qe [B, P, Ck], or either side unbatched) -> [B, P, N]."""
     ck = mk.shape[-1]
     if qe is not None:
-        a_sq = qe @ (mk * mk).T                                   # [P, N]
-        two_ab = 2.0 * ((qk * qe) @ mk.T)
+        a_sq = qe @ (mk * mk).mT                                  # [P, N]
+        two_ab = 2.0 * ((qk * qe) @ mk.mT)
         b_sq = torch.sum(qe * qk * qk, dim=-1, keepdim=True)       # [P, 1]
         sim = -a_sq + two_ab - b_sq
     else:
         a_sq = torch.sum(mk * mk, dim=-1)                          # [N]
-        two_ab = 2.0 * (qk @ mk.T)
-        sim = -a_sq[None, :] + two_ab
+        two_ab = 2.0 * (qk @ mk.mT)
+        sim = -a_sq[..., None, :] + two_ab
     if ms is not None:
-        sim = sim * ms[None, :]
+        sim = sim * ms[..., None, :]
     return sim / math.sqrt(ck)
 
 
