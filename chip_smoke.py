@@ -42,7 +42,19 @@ fails the run when it fails:
   9. check:   the port on the card against the port on the CPU (plain
               versions of every kernel) on a small f32 video: masks equal,
               also with augmentation; the same candidates chosen; spill
-              archives of the same size.
+              archives of the same size;
+ 10. train:   the stage-2 loader timed alone (1 and 8 threads), then
+              python -m xmem2_tpu_torch.train on synthetic 854x480 data in
+              the reference layouts: stage 0 (batch 8, 3 frames, single
+              object) in a plain process, then stage 2 (batch 8, 8 frames,
+              3 reference frames, 384 crops, bf16 autocast) for 16 steps
+              under torchrun with one process (DDP over NCCL); every loss
+              finite; steps/s, samples/s and the step's phases by CUDA
+              events over the steady steps, peak memory, a profiler window
+              of 3 steps by kernel group and the device's busy share;
+ 11. train-check: one float32 training step (TF32 off) on the card and on
+              the CPU, same weights and batch: loss within 1e-5 relative,
+              every gradient leaf within 1e-3 of its largest entry.
 
 The second-to-last line of output is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}.
@@ -889,6 +901,286 @@ def small_check_phase(work: Path):
                              f'{archived}')
 
 
+# ---------------------------------------------------------------------------
+# phase 10-11: training
+# ---------------------------------------------------------------------------
+
+def synth_training_data(root: Path, h: int = 480, w: int = 854):
+    """Training data in the reference layouts at 854x480: static images
+    (static/fss/<class>/<i>.jpg|png and the flat DUTS-TR folder, plus the
+    other flat folders stage 0 lists, empty), DAVIS
+    (DAVIS/2017/trainval/{JPEGImages,Annotations}/480p/<video>) and
+    YouTubeVOS (YouTube/train_480p/{JPEGImages,Annotations}/<video>). The
+    videos carry names of the stage-2 whitelists; each has three moving
+    objects."""
+    import io
+
+    import numpy as np
+    from PIL import Image
+    from xmem2_tpu_torch.utils.load_subset import load_sub_davis, \
+        load_sub_yv
+
+    rng = np.random.default_rng(2)
+    yy, xx = np.mgrid[0:h, 0:w]
+    palette = [0, 0, 0, 128, 0, 0, 0, 128, 0, 0, 0, 128] + [0] * 756
+
+    def encoded(t):
+        """Frame t's JPEG and its label map's palette PNG, as bytes."""
+        bg = rng.integers(0, 255, (h // 16, w // 16, 3)).astype(np.uint8)
+        img = np.asarray(Image.fromarray(bg).resize((w, h), Image.BILINEAR))
+        label = np.zeros((h, w), np.uint8)
+        for o in range(3):
+            cx = w * (0.2 + 0.25 * o + 0.01 * t)
+            cy = h * (0.3 + 0.2 * o)
+            label[((yy - cy) / (h * 0.15)) ** 2
+                  + ((xx - cx) / (w * 0.1)) ** 2 < 1] = o + 1
+        img = img.copy()
+        for o, c in enumerate(((220, 60, 40), (40, 200, 90), (60, 60, 220))):
+            img[label == o + 1] = c
+        jpg, png, fg = io.BytesIO(), io.BytesIO(), io.BytesIO()
+        Image.fromarray(img).save(jpg, 'JPEG', quality=92)
+        m = Image.fromarray(label, mode='P')
+        m.putpalette(palette)
+        m.save(png, 'PNG')
+        Image.fromarray((label == 1).astype(np.uint8) * 255).save(fg, 'PNG')
+        return jpg.getvalue(), png.getvalue(), fg.getvalue()
+
+    # 16 distinct frames, written under every name (the loaders read files;
+    # their content repeating across videos and images does not matter)
+    frames = [encoded(t) for t in range(16)]
+    st = root / 'static'
+    for name in ('DUTS-TE', 'ecssd', 'BIG_small', 'HRSOD_small'):
+        (st / name).mkdir(parents=True)
+    for i in range(48):
+        d = st / 'fss' / f'class{i % 4}' if i < 32 else st / 'DUTS-TR'
+        d.mkdir(parents=True, exist_ok=True)
+        (d / f'{i}.jpg').write_bytes(frames[i % 16][0])
+        (d / f'{i}.png').write_bytes(frames[i % 16][2])
+    davis = root / 'DAVIS' / '2017' / 'trainval'
+    yv = root / 'YouTube' / 'train_480p'
+    videos = [(davis, v, '480p') for v in sorted(load_sub_davis())[:16]] + \
+        [(yv, v, '') for v in sorted(load_sub_yv())[:4]]
+    for base, vid, sub in videos:
+        ims, anns = base / 'JPEGImages' / sub / vid, \
+            base / 'Annotations' / sub / vid
+        ims.mkdir(parents=True)
+        anns.mkdir(parents=True)
+        for t, (jpg, png, _) in enumerate(frames):
+            (ims / f'{t:05d}.jpg').write_bytes(jpg)
+            (anns / f'{t:05d}.png').write_bytes(png)
+
+
+def _train_cli(args, work: Path, torchrun: bool, timeout: int = 600):
+    """python -m xmem2_tpu_torch.train (under torchrun with one process when
+    asked) from the work directory; fails with the end of its output."""
+    import os
+    root = Path(__file__).resolve().parent
+    cmd = [sys.executable, '-m', 'xmem2_tpu_torch.train'] + args
+    if torchrun:
+        cmd = [sys.executable, '-m', 'torch.distributed.run', '--standalone',
+               '--nproc_per_node=1', '-m', 'xmem2_tpu_torch.train'] + args
+    env = dict(os.environ, PYTHONPATH=str(root))
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=work, env=env, capture_output=True,
+                         text=True, timeout=timeout)
+    seconds = time.perf_counter() - t0
+    if out.returncode != 0:
+        raise AssertionError(f'train CLI failed ({out.returncode}):\n'
+                             f'{out.stdout[-3000:]}\n{out.stderr[-5000:]}')
+    return seconds, out.stdout
+
+
+TRAIN_GROUPS = (
+    ('NCCL', ('nccl',)),
+    ('optimizer (AdamW foreach)', ('multi_tensor_apply',)),
+    ('cuDNN convolution backward (dgrad, wgrad)', ('dgrad', 'wgrad')),
+    ('cuDNN layout transposes', ('nchwtonhwc', 'nhwctonchw')),
+    ('cuDNN convolution forward', ('fprop', 'conv', 'cudnn', 'implicit')),
+    ('matrix products (cuBLAS)', ('gemm', 'cublas', 'nvjet', 'cutlass')),
+)
+
+
+def _report_stage(s: dict, card: str, warmup: int = 2) -> dict:
+    """Logs one stage of --stats: rates over the steady steps (after the
+    warm-up, not the first batch of a fresh loader, not profiled), the
+    phase split, peak memory, the profile by group and the device's busy
+    share of the window. Fails on a non-finite loss."""
+    import numpy as np
+    losses = np.asarray(s['losses'])
+    if not np.isfinite(losses).all():
+        raise AssertionError(f'stage {s["stage"]}: non-finite loss {losses}')
+    skip = set(s['fresh_loader_steps']) | set(s['profiled_steps'])
+    steady = [i for i in range(warmup, len(losses)) if i not in skip]
+    phases = s['phases_ms']
+    split = {k: float(np.mean([phases[i][k] for i in steady]))
+             for k in ('data', 'forward', 'backward', 'optimizer')}
+    step_ms = sum(split.values())
+    out = dict(stage=s['stage'], steady=len(steady), step_ms=step_ms,
+               steps_per_s=1e3 / step_ms,
+               samples_per_s=1e3 / step_ms * s['batch_size'],
+               split=split, peak_gb=s['peak_memory_bytes'] / 1e9,
+               first_ms=sum(phases[0].values()))
+    log(f'[train] stage {s["stage"]} (batch {s["batch_size"]} over '
+        f'{s["world_size"]} process, {s["num_frames"]} frames, crop '
+        f'{s["crop_size"]}, {"bf16 autocast" if s["amp"] else "f32"}) on '
+        f'{card}: {len(losses)} steps, losses {losses[0]:.4f} -> '
+        f'{losses[-1]:.4f}, all finite')
+    log(f'[train]   over {len(steady)} steady steps: {out["steps_per_s"]:.3f}'
+        f' steps/s = {out["samples_per_s"]:.2f} samples/s; ms a step: data '
+        f'wait {split["data"]:.1f}, forward {split["forward"]:.1f}, backward '
+        f'{split["backward"]:.1f}, optimizer {split["optimizer"]:.1f} (first '
+        f'step {out["first_ms"]:.0f} ms); peak memory allocated '
+        f'{out["peak_gb"]:.2f} GB')
+    prof = s['profile']
+    if prof is None:
+        return out
+    groups = {}
+    for key, us, _ in prof['kernels']:
+        k = key.lower()
+        grp = next((g for g, words in TRAIN_GROUPS
+                    if any(w in k for w in words)),
+                   'elementwise, reductions, copies')
+        groups[grp] = groups.get(grp, 0.0) + us
+    total = sum(groups.values())
+    if total == 0 or prof['busy_s'] == 0:
+        raise AssertionError('the profiler recorded no device time')
+    n = len(s['profiled_steps'])
+    out['busy'] = prof['busy_s'] / prof['wall_s']
+    out['groups_ms'] = {g: us / 1e3 / n for g, us in groups.items()}
+    log(f'[train]   profile over steps {s["profiled_steps"]}: wall '
+        f'{prof["wall_s"]:.3f} s, device busy {prof["busy_s"]:.3f} s '
+        f'({100 * out["busy"]:.1f}% of wall; kernel times summed over '
+        f'streams {total / 1e6:.3f} s)')
+    for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f'[train]     {grp}: {us / 1e3 / n:.1f} ms a step '
+            f'({100 * us / total:.1f}%)')
+    top = sorted(prof['kernels'], key=lambda r: -r[1])[:8]
+    for key, us, count in top:
+        log(f'[train]     top: {us / 1e3 / n:8.1f} ms/step x{count:<5d} '
+            f'{key[:90]}')
+    return out
+
+
+def loader_alone(data: Path):
+    """The stage-2 loader's rate with nothing else running: seconds a batch
+    (8 clips of 8 frames at 384 crops) with one worker thread over one
+    batch, and with the training runs' 8 threads over 8 batches."""
+    import os
+
+    from xmem2_tpu_torch.train.loader import DataLoader
+    from xmem2_tpu_torch.train.vos_dataset import VOSDataset
+    from xmem2_tpu_torch.utils.load_subset import load_sub_davis
+
+    davis = data / 'DAVIS' / '2017' / 'trainval'
+    ds = VOSDataset(str(davis / 'JPEGImages' / '480p'),
+                    str(davis / 'Annotations' / '480p'), 5, is_bl=False,
+                    subset=load_sub_davis(), num_frames=8, seed=1)
+    rate = {}
+    for workers, batches in ((1, 1), (8, 8)):
+        loader = DataLoader(ds, 8, shuffle=True, num_workers=workers, seed=1)
+        t0 = time.perf_counter()
+        for i, _ in enumerate(loader):
+            if i + 1 == batches:
+                break
+        rate[workers] = (time.perf_counter() - t0) / batches
+    log(f'[train] stage-2 loader alone ({os.cpu_count()} host cores): '
+        f'{rate[1]:.3f} s a batch with 1 thread, {rate[8]:.3f} s a batch '
+        f'with 8 threads')
+
+
+def train_phase(work: Path, card: str):
+    """Stage 0 (batch 8, 3 frames, single object) in a plain process, then
+    stage 2 (batch 8, 8 frames, 3 reference frames, 384 crops, bf16) under
+    torchrun with one process (DDP over NCCL), on synthetic 854x480 data;
+    each with --stats."""
+    import json
+    data = work / 'train_data'
+    t0 = time.perf_counter()
+    synth_training_data(data)
+    log(f'[train] synthetic data at 854x480 written in '
+        f'{time.perf_counter() - t0:.1f} s')
+    loader_alone(data)
+    common = ['--num_workers', '8']
+    s0_s, _ = _train_cli(
+        ['--stages', '0', '--static_root', str(data / 'static'),
+         '--s0_batch_size', '8', '--s0_iterations', '8',
+         '--stats', str(work / 'stats_s0.json')] + common, work, False)
+    s2_s, stdout = _train_cli(
+        ['--stages', '2', '--davis_root', str(data / 'DAVIS'),
+         '--yv_root', str(data / 'YouTube'), '--s2_batch_size', '8',
+         '--s2_iterations', '16', '--s2_finetune', '0',
+         '--stats', str(work / 'stats_s2.json')] + common, work, True)
+    if 'rank 0 of 1' not in stdout:
+        raise AssertionError('stage 2 did not run in a process group')
+    log(f'[train] processes: stage 0 {s0_s:.1f} s, stage 2 under torchrun '
+        f'{s2_s:.1f} s (start-up and data loading included)')
+    out = {}
+    for name in ('stats_s0.json', 'stats_s2.json'):
+        for s in json.loads((work / name).read_text()):
+            out[s['stage']] = _report_stage(s, card)
+    return out
+
+
+def train_check_phase(card: str):
+    """One float32 training step (TF32 off) on the card and on the CPU with
+    the same weights (the JAX initialisation's draws, tamed as
+    tests/test_torch_train.py) and batch (64x64, B = 2, T = 3, two object
+    slots with one empty): the loss within 1e-5 relative, every trainable
+    gradient leaf within 1e-3 of its largest entry (plus 1e-7 of the
+    largest gradient anywhere, the rounding floor of a leaf whose gradient
+    is zero in exact arithmetic)."""
+    import numpy as np
+    import torch
+    from xmem2_tpu_torch.bridge.torch_params import build_train_model
+    from xmem2_tpu_torch.models.init import init_params
+    from xmem2_tpu_torch.train.trainer import sample_draws, train_forward
+
+    sd, dims = init_params(seed=0)
+    for name, s in (('key_proj.key_proj', 0.01), ('key_proj.d_proj', 0.01),
+                    ('key_proj.e_proj', 0.01), ('decoder.pred', 0.001),
+                    ('decoder.hidden_update.transform', 0.01),
+                    ('value_encoder.hidden_reinforce.transform', 0.01)):
+        sd[name + '.weight'] = sd[name + '.weight'] * np.float32(s)
+    rng = np.random.default_rng(9)
+    b, t, h, w = 2, 3, 64, 64
+    frames = rng.standard_normal((b, t, h, w, 3)).astype(np.float32)
+    cls = np.zeros((b, t, h, w), np.int64)
+    cls[:, :, 10:40, 12:44] = 1
+    ffg = np.zeros((b, 1, 2, h, w), np.float32)
+    ffg[:, 0, 0] = cls[:, 0] == 1
+    sel = np.array([[1, 0], [1, 0]], np.float32)
+    result = {}
+    for dev in ('cuda', 'cpu'):
+        model = build_train_model(sd, dims, dev)
+        ref_idx, deep = sample_draws(torch.Generator().manual_seed(0), b, t,
+                                     2, 1.0)
+
+        def on(x):
+            return torch.from_numpy(x).to(dev)
+
+        losses = train_forward(model, on(frames).permute(0, 1, 4, 2, 3),
+                               on(ffg), on(sel), on(cls), ref_idx, deep, 0,
+                               10, 20)
+        losses['total_loss'].backward()
+        result[dev] = (float(losses['total_loss'].detach()),
+                       {n: p.grad.cpu().numpy()
+                        for n, p in model.named_parameters()})
+    (loss_c, g_c), (loss_h, g_h) = result['cuda'], result['cpu']
+    floor = 1e-7 * max(float(np.abs(g).max()) for g in g_h.values())
+    worst = max((float(np.abs(g_c[n] - g).max())
+                 / (float(np.abs(g).max()) + floor / 1e-3), n)
+                for n, g in g_h.items())
+    rel = abs(loss_c - loss_h) / abs(loss_h)
+    log(f'[train-check] f32 step, card vs CPU: loss {loss_c:.7f} vs '
+        f'{loss_h:.7f} (rel {rel:.2e}, limit 1e-5); worst gradient leaf '
+        f'{worst[1]} at {worst[0]:.2e} of its scale (limit 1e-3), '
+        f'{len(g_h)} leaves, on {card}')
+    if rel > 1e-5:
+        raise AssertionError('card and CPU losses disagree')
+    if worst[0] > 1e-3:
+        raise AssertionError(f'card and CPU gradients disagree: {worst}')
+
+
 def kernels_json(rows, launches):
     src = 'xmem2_tpu_torch/ops/csrc/'
     meta = {
@@ -959,6 +1251,8 @@ def main(argv=None) -> int:
         spill_phase(Path(work), card)
         eval_phase(Path(work), card)
         small_check_phase(Path(work))
+        train_phase(Path(work), card)
+    train_check_phase(card)
 
     default, exact = counts.values()
     launches = dict(default, topk_readout_float32=exact['topk_readout'],

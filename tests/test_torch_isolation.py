@@ -39,7 +39,13 @@ missing = {'xmem2_tpu_torch.eval', 'xmem2_tpu_torch.run_experiments',
            'xmem2_tpu_torch.memory.spill', 'xmem2_tpu_torch.utils.metrics',
            'xmem2_tpu_torch.inference.data.test_datasets',
            'xmem2_tpu_torch.inference.frame_selection.frame_selection',
-           'xmem2_tpu_torch.inference.frame_selection.utils'} - set(names)
+           'xmem2_tpu_torch.inference.frame_selection.utils',
+           'xmem2_tpu_torch.models.init', 'xmem2_tpu_torch.train.cli',
+           'xmem2_tpu_torch.train.trainer', 'xmem2_tpu_torch.train.losses',
+           'xmem2_tpu_torch.train.vos_dataset',
+           'xmem2_tpu_torch.train.static_dataset',
+           'xmem2_tpu_torch.train.loader', 'xmem2_tpu_torch.utils.logger',
+           'xmem2_tpu_torch.utils.load_subset'} - set(names)
 assert not missing, missing
 print('imported', len(names))
 """)
@@ -91,6 +97,25 @@ def test_entry_points_raise_without_cuda(tmp_path):
                         '--output', str(tmp_path / 'eval')])
     with pytest.raises(RuntimeError, match='CUDA'):
         load_model(str(tmp_path / 'ckpt.pth'))
+
+
+def test_training_needs_cuda_unless_asked_for_the_cpu(tmp_path):
+    """XMemTrainer and the training CLI run on the card by default: without
+    CUDA they raise; --device cpu / device='cpu' run on the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    from xmem2_tpu_torch.models.network import XMem
+    from xmem2_tpu_torch.train import cli
+    from xmem2_tpu_torch.train.trainer import XMemTrainer
+    dims = (8, 16, 4)
+    sd = {k: v.numpy() for k, v in XMem(*dims).state_dict().items()}
+    config = dict(lr=1e-5, weight_decay=0.05, start_warm=1, end_warm=2)
+    with pytest.raises(RuntimeError, match='CUDA'):
+        XMemTrainer(config, sd, dims)
+    assert XMemTrainer(config, sd, dims, device='cpu').device == \
+        torch.device('cpu')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        cli.main(['--stages', '0', '--static_root', str(tmp_path)])
 
 
 def test_memory_manager_defaults_to_cuda():

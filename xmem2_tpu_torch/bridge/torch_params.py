@@ -8,7 +8,9 @@ xmem2_tpu/bridge/torch_params.py:
   - single->multi-object surgery: the value encoder's conv1 padded from 4 to
     5 input channels with zeros (reference network.py:184-198).
 The JAX package stores conv weights HWIO and linear weights [in, out];
-params_from_jax inverts its conversion (OIHW -> HWIO, [out, in] -> [in, out]).
+params_from_jax inverts its conversion (OIHW -> HWIO, [out, in] -> [in, out])
+and keeps a single-object tree's 4-channel conv1 as it is. Whether a state
+dict holds the single-object (stage-0) network is read off that conv1.
 """
 
 from typing import Dict, Mapping, Tuple
@@ -100,20 +102,51 @@ def load_state_dict_file(path: str) -> Tuple[Dict[str, np.ndarray], Dims]:
                                for k, v in sd.items()})
 
 
-def build_model(sd: Mapping[str, np.ndarray], dims: Dims,
-                device=None) -> XMem:
+def _module(sd: Mapping[str, np.ndarray], dims: Dims, device,
+            copy: bool) -> XMem:
     """An XMem module holding the state dict (float32) on `device`: CUDA
     unless the caller passes another (config.resolve_device). The module is
-    built on the meta device and takes the checkpoint's tensors as they
-    are: no random initialisation to overwrite (0.5 s for the ResNet-50/18
-    encoders)."""
+    built on the meta device and takes the checkpoint's tensors: no random
+    initialisation to overwrite (0.5 s for the ResNet-50/18 encoders).
+    Without `copy`, tensors on the CPU share memory with `sd`."""
     device = resolve_device(device)
+    # the stage-0 network: a value-encoder conv1 over 3 + 1 channels
+    single_object = sd['value_encoder.conv1.weight'].shape[1] == 4
     with torch.device('meta'):
-        model = XMem(*dims)
-    model.load_state_dict({k: torch.from_numpy(np.require(v, np.float32,
-                                                          ['W']))
+        model = XMem(*dims, single_object=single_object)
+    tensor = torch.tensor if copy else torch.from_numpy
+    model.load_state_dict({k: tensor(np.require(v, np.float32, ['W']))
                            for k, v in sd.items()}, assign=True)
-    return model.to(device).eval().requires_grad_(False)
+    return model.to(device)
+
+
+def build_model(sd: Mapping[str, np.ndarray], dims: Dims,
+                device=None) -> XMem:
+    """An inference XMem module: frozen, in eval mode."""
+    return _module(sd, dims, device, copy=False).eval().requires_grad_(False)
+
+
+def build_train_model(sd: Mapping[str, np.ndarray], dims: Dims,
+                      device=None) -> XMem:
+    """A training XMem module holding a copy of the state dict: every
+    parameter trainable, the batch-norm running statistics frozen buffers
+    (BatchNorm2d always normalises with them, as the reference's trainer
+    does under .eval())."""
+    return _module(sd, dims, device, copy=True).requires_grad_(True)
+
+
+def state_dict_numpy(model: torch.nn.Module) -> Dict[str, np.ndarray]:
+    """A module's reference-layout state dict as float32 numpy arrays on
+    the host."""
+    return {k: v.detach().float().cpu().numpy()
+            for k, v in model.state_dict().items()}
+
+
+def save_network(model: torch.nn.Module, path: str):
+    """The weights as a reference-format .pth, read by load_model here and
+    by the JAX package's load_any."""
+    torch.save({k: torch.from_numpy(v)
+                for k, v in state_dict_numpy(model).items()}, path)
 
 
 def load_model(path: str, device=None) -> XMem:

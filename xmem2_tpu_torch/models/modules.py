@@ -13,7 +13,7 @@ from typing import Tuple
 import torch
 from torch import nn
 
-from xmem2_tpu_torch.models.resnet import Conv2d
+from xmem2_tpu_torch.models.resnet import Conv2d, to_compute_dtype
 from xmem2_tpu_torch.nn import functional as XF
 
 
@@ -65,7 +65,7 @@ def _conv_part(conv: nn.Conv2d, x: torch.Tensor, lo: int, hi: int,
     concat is the sum of convs over the parts; the bias is added once)."""
     bias = conv.bias if with_bias else None
     w = conv.weight[:, lo:hi]
-    return nn.functional.conv2d(x.to(w.dtype), w, bias, conv.stride,
+    return nn.functional.conv2d(to_compute_dtype(x, w), w, bias, conv.stride,
                                 conv.padding)
 
 
@@ -119,7 +119,8 @@ class ChannelGate(nn.Module):
 
     def _mlp(self, v):
         w1, w3 = self.mlp[1], self.mlp[3]
-        v = nn.functional.linear(v.to(w1.weight.dtype), w1.weight, w1.bias)
+        v = nn.functional.linear(to_compute_dtype(v, w1.weight), w1.weight,
+                                 w1.bias)
         return nn.functional.linear(torch.relu(v), w3.weight, w3.bias)
 
     def forward(self, x):

@@ -13,12 +13,21 @@ from torch import nn
 from xmem2_tpu_torch.nn import functional as XF
 
 
+def to_compute_dtype(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x cast to the weight's dtype (the compute dtype), as the JAX package's
+    conv2d(dtype=...) does. Under autocast (training's bf16 mode, float32
+    weights) autocast picks the dtype itself: casting to the weight's first
+    would copy every activation to float32 and back."""
+    if torch.is_autocast_enabled(x.device.type):
+        return x
+    return x.to(w.dtype)
+
+
 class Conv2d(nn.Conv2d):
-    """nn.Conv2d that casts its input to the weight's dtype (the compute
-    dtype), as the JAX package's conv2d(dtype=...) does."""
+    """nn.Conv2d that casts its input to the compute dtype."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return super().forward(x.to(self.weight.dtype))
+        return super().forward(to_compute_dtype(x, self.weight))
 
 
 class BatchNorm2d(nn.Module):

@@ -1,0 +1,6 @@
+"""python -m xmem2_tpu_torch.train: the training CLI (train/cli.py)."""
+
+from xmem2_tpu_torch.train.cli import main
+
+if __name__ == '__main__':
+    main()
