@@ -54,7 +54,22 @@ fails the run when it fails:
               of 3 steps by kernel group and the device's busy share;
  11. train-check: one float32 training step (TF32 off) on the card and on
               the CPU, same weights and batch: loss within 1e-5 relative,
-              every gradient leaf within 1e-3 of its largest entry.
+              every gradient leaf within 1e-3 of its largest entry;
+ 12. interactive: a user's session through SessionController (bf16, the
+              demo's default) on a workspace that python -m
+              xmem2_tpu_torch.import_existing and ResourceManager build from
+              60 synthetic 854x480 frames with two objects, with seeded S2M
+              and f-BRS checkpoints at the published widths: a scribble per
+              object (S2M), three f-BRS-B clicks and an undo, a brush
+              stroke, a reference, propagation forward, full propagation,
+              candidates, a live config change and the memory gauges; ms
+              per scribble and click, L-BFGS evaluations a click, frames/s,
+              launch counts, peak memory and a profile of one click;
+ 13. interactive-check: the same session in float32 on a 24-frame 96x160
+              workspace on the card and on the CPU: S2M probabilities within
+              1e-3, one f-BRS forward within 1e-4 of its largest logit,
+              f-BRS masks after L-BFGS equal on >= 99% of pixels,
+              propagated masks on >= 99.9%, the same candidates.
 
 The second-to-last line of output is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}.
@@ -400,19 +415,16 @@ def kernel_phase():
 # phase 4-5: the main path
 # ---------------------------------------------------------------------------
 
-def synth_checkpoint(path: Path, seed: int = 0):
-    """Seeded synthetic weights at the published XMem widths (key 64, value
-    512, hidden 64; ResNet-50 / ResNet-18 encoders), names and shapes from
-    the port's own module, conditioned as tests/golden_utils.py (BN near
-    identity, He-scaled convs) and with the key/shrinkage projections tamed
-    as tests/test_e2e_parity.py:46-47. Saved as a reference-format .pth."""
+def _synth_weights(module, seed: int) -> dict:
+    """Seeded weights for `module`'s state-dict names and shapes, conditioned
+    as tests/golden_utils.py (BN near identity, He-scaled convs), as
+    tensors."""
     import numpy as np
     import torch
-    from xmem2_tpu_torch.models.network import XMem
 
     rng = np.random.default_rng(seed)
     sd = {}
-    for name, t in XMem().state_dict().items():
+    for name, t in module.state_dict().items():
         shape = tuple(t.shape)
         a = rng.standard_normal(shape).astype(np.float32)
         if name.endswith('running_var'):
@@ -426,6 +438,18 @@ def synth_checkpoint(path: Path, seed: int = 0):
         elif name.endswith('weight') and a.ndim == 2:
             a = a / np.float32(np.sqrt(shape[1]))
         sd[name] = torch.from_numpy(a)
+    return sd
+
+
+def synth_checkpoint(path: Path, seed: int = 0):
+    """Seeded synthetic weights at the published XMem widths (key 64, value
+    512, hidden 64; ResNet-50 / ResNet-18 encoders), names and shapes from
+    the port's own module, with the key/shrinkage projections tamed as
+    tests/test_e2e_parity.py:46-47. Saved as a reference-format .pth."""
+    import torch
+    from xmem2_tpu_torch.models.network import XMem
+
+    sd = _synth_weights(XMem(), seed)
     sd['key_proj.key_proj.weight'] *= 0.001
     sd['key_proj.d_proj.weight'] *= 0.01
     torch.save(sd, path)
@@ -576,20 +600,11 @@ def main_path_phase(work: Path, card: str):
     return counts
 
 
-def profile_phase(work: Path, card: str, label='default mode', **run_kw):
-    """One default-mode run under torch.profiler (run_kw go to
-    run_on_video): device time by kernel, grouped, and the device's busy
-    share of the run's wall time (the profiler's own cost is inside that
-    wall time)."""
+def _kernel_groups(prof):
+    """A profile's CUDA kernels: ([(device us, name, count)] largest first,
+    {group: device us}, total device us). Raises if no device time."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    imgs, anns = work / 'video480' / 'JPEGImages', work / 'video480' / \
-        'Annotations'
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        seconds, _, _ = _run(imgs, anns, work / 'prof', work /
-                             'synth_xmem.pth', 'cuda', {}, **run_kw)
     dev = []            # kernels only: an op's kernels are not counted twice
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:
@@ -612,7 +627,7 @@ def profile_phase(work: Path, card: str, label='default mode', **run_kw):
             grp = 'K1 topk_readout'
         elif 'topk_usage' in k:
             grp = 'K1 topk_usage'
-        elif any(w in k for w in ('fprop', 'dgrad', 'conv', 'cudnn',
+        elif any(w in k for w in ('fprop', 'dgrad', 'wgrad', 'conv', 'cudnn',
                                   'nchwtonhwc', 'nhwctonchw')):
             grp = 'convolutions (cuDNN, with its layout transposes)'
         elif any(w in k for w in ('gemm', 'cublas', 'cutlass')):
@@ -620,6 +635,24 @@ def profile_phase(work: Path, card: str, label='default mode', **run_kw):
         else:
             grp = 'elementwise, reductions, copies'
         groups[grp] = groups.get(grp, 0) + us
+    return dev, groups, total
+
+
+def profile_phase(work: Path, card: str, label='default mode', **run_kw):
+    """One default-mode run under torch.profiler (run_kw go to
+    run_on_video): device time by kernel, grouped, and the device's busy
+    share of the run's wall time (the profiler's own cost is inside that
+    wall time)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    imgs, anns = work / 'video480' / 'JPEGImages', work / 'video480' / \
+        'Annotations'
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        seconds, _, _ = _run(imgs, anns, work / 'prof', work /
+                             'synth_xmem.pth', 'cuda', {}, **run_kw)
+    dev, groups, total = _kernel_groups(prof)
     log(f'[profile] {label}, 120 frames at 854x480 on {card}: wall '
         f'{seconds:.3f} s under the profiler, device busy {total / 1e6:.3f} '
         f's ({100 * total / 1e6 / seconds:.1f}% of wall)')
@@ -1181,6 +1214,284 @@ def train_check_phase(card: str):
         raise AssertionError(f'card and CPU gradients disagree: {worst}')
 
 
+# ---------------------------------------------------------------------------
+# phase 12-13: the interactive layer
+# ---------------------------------------------------------------------------
+
+def synth_interactive_weights(work: Path) -> dict:
+    """Seeded S2M (DeepLabV3+ ResNet-50, 6 input channels, output stride 16)
+    and f-BRS (ResNet-50-v1s DeepLabV3+, output stride 8) checkpoints at the
+    published widths, saved as reference-format .pth files. The last conv
+    of each is tamed so the logits are O(1): masks neither empty nor full."""
+    import torch
+    from xmem2_tpu_torch.interactive.fbrs.model import FBRSModel
+    from xmem2_tpu_torch.interactive.s2m.network import S2MNet
+
+    paths = {}
+    for name, module, seed, last, (scale, bias) in (
+            ('s2m', S2MNet(), 2, 'classifier.classifier.3', (1e-2, 2.4)),
+            ('fbrs', FBRSModel(), 3, 'head.layers.2', (1e-3, 0.0))):
+        sd = _synth_weights(module, seed)
+        sd[last + '.weight'] *= scale
+        sd[last + '.bias'][:] = bias
+        paths[name] = work / f'synth_{name}.pth'
+        torch.save(sd, paths[name])
+    return paths
+
+
+def _sync(device: str):
+    import torch
+    if device == 'cuda':
+        torch.cuda.synchronize()
+
+
+def interactive_session(work: Path, tag: str, device: str, dtype: str,
+                        h: int, w: int, n: int, profile_click=False) -> dict:
+    """A user's session, headless: the workspace from import_existing (n
+    synthetic frames with two objects, both annotated on frame 0) opened by
+    ResourceManager; on frame 0 a scribble for each object (S2M), f-BRS-B
+    clicks on object 1 (positive, positive, negative; zoom-in engages from
+    the second) and an undo, a brush stroke; then save_reference,
+    propagate('forward'), full_propagate, compute_candidates(k=5),
+    update_config and memory_stats. Returns what the phases report and
+    compare; raises if a mask is missing or a probability is not finite."""
+    import numpy as np
+    import torch
+    from xmem2_tpu_torch import import_existing
+    from xmem2_tpu_torch.bridge.torch_params import load_model
+    from xmem2_tpu_torch.config import VIDEO_INFERENCE_CONFIG
+    from xmem2_tpu_torch.inference.core import InferenceCore
+    from xmem2_tpu_torch.inference.net import XMemNet
+    from xmem2_tpu_torch.interactive.fbrs.controller import FBRSController
+    from xmem2_tpu_torch.interactive.fbrs.predictor import \
+        compute_coord_features
+    from xmem2_tpu_torch.interactive.clicks.dist_maps import Click
+    from xmem2_tpu_torch.interactive.resource_manager import ResourceManager
+    from xmem2_tpu_torch.interactive.s2m import (
+        S2MController, load_s2m_state_dict)
+    from xmem2_tpu_torch.interactive.session import SessionController
+    from xmem2_tpu_torch.ops.readout_kernel import LAUNCHES, \
+        reset_launch_counts
+
+    imgs, anns = synth_video(work / f'{tag}_video', h, w, n, 0)
+    with contextlib.chdir(work):
+        import_existing.main(['--name', tag, '--size', str(min(h, w)),
+                              '--images', str(imgs), '--masks', str(anns)])
+    config = dict(VIDEO_INFERENCE_CONFIG, workspace=str(work / 'workspace' /
+                                                        tag),
+                  size=min(h, w), num_objects=None, compute_dtype=dtype,
+                  value_store_dtype=dtype)
+    res_man = ResourceManager(config)
+    if (len(res_man), res_man.num_objects, res_man.h, res_man.w) != \
+            (n, 2, h, w):
+        raise AssertionError(f'{tag}: workspace of {len(res_man)} frames, '
+                             f'{res_man.num_objects} objects, '
+                             f'{res_man.h}x{res_man.w}')
+    net = XMemNet(load_model(str(work / 'synth_xmem.pth'), device),
+                  compute_dtype=dtype, device=device)
+    s2m = S2MController(load_s2m_state_dict(str(work / 'synth_s2m.pth')), 2,
+                        compute_dtype=dtype, device=device)
+    fbrs = FBRSController(str(work / 'synth_fbrs.pth'), compute_dtype=dtype,
+                          device=device)
+    ctl = SessionController(InferenceCore(net, config, device=device),
+                            res_man, s2m, fbrs, config)
+    if device == 'cuda':
+        torch.cuda.reset_peak_memory_stats()
+
+    bad = torch.zeros((), dtype=torch.int64, device=device)
+    out = {'s2m': [], 'clicks': [], 'scribble_ms': [], 'click_ms': [],
+           'evaluations': []}
+
+    def checked(fn, keep=None):
+        def call(*a, **k):
+            r = fn(*a, **k)
+            if r is not None:
+                bad.add_((~torch.isfinite(r)).sum())
+                if keep is not None:
+                    keep.append(r.float().cpu().numpy())
+            return r
+        return call
+
+    s2m.interact = checked(s2m.interact, out['s2m'])
+    fbrs.interact = checked(fbrs.interact, out['clicks'])
+    store = ctl._store_step
+
+    def store_checked(ti, prob, *a, **k):
+        bad.add_((~torch.isfinite(prob)).sum())
+        return store(ti, prob, *a, **k)
+
+    ctl._store_step = store_checked
+
+    def timed(key, fn):
+        _sync(device)
+        t0 = time.perf_counter()
+        fn()
+        _sync(device)
+        out[key].append(1e3 * (time.perf_counter() - t0))
+
+    # 1. a scribble for each object on frame 0 (S2M)
+    ctl.set_cursor(0)
+    for k, pts in ((1, ((0.15, 0.45), (0.2, 0.5), (0.25, 0.55))),
+                   (2, ((0.75, 0.3), (0.85, 0.3)))):
+        ctl.current_object = k
+        for fx, fy in pts:
+            ctl.push_point(fx * w, fy * h, False, 'scribble')
+        timed('scribble_ms', ctl.end_path)
+    ctl.commit()
+    # 2. f-BRS-B clicks on object 1, then undo the last
+    ctl.current_object = 1
+    clicks = ((0.2, 0.5, False), (0.26, 0.56, False), (0.45, 0.5, True))
+    for fx, fy, neg in clicks:
+        timed('click_ms', lambda: ctl.push_point(fx * w, fy * h, neg,
+                                                 'click'))
+        out['evaluations'].append(fbrs.last_evaluations)
+    undone = fbrs.undo()
+    if not np.array_equal(undone.cpu().numpy(), out['clicks'][1]):
+        raise AssertionError(f'{tag}: undo did not restore the second click')
+    ctl.interaction.obj_mask = undone
+    ctl.commit()
+    # 3. a brush stroke over object 2, committed
+    ctl.set_brush_size(5)
+    ctl.current_object = 2
+    for fx, fy in ((0.7, 0.25), (0.8, 0.35)):
+        ctl.push_point(fx * w, fy * h, False, 'free')
+    ctl.commit()
+    out['frame0'] = ctl.res_man.get_mask(0).copy()
+    # 4-5. reference, propagation, candidates, config, gauges
+    if not ctl.save_reference():
+        raise AssertionError(f'{tag}: frame 0 has no mask to save')
+    reset_launch_counts()
+    _sync(device)
+    t0 = time.perf_counter()
+    done = ctl.propagate('forward')
+    _sync(device)
+    out['propagate_s'] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    done_full = ctl.full_propagate()
+    _sync(device)
+    out['full_s'] = time.perf_counter() - t0
+    out['launches'] = dict(LAUNCHES)
+    if done != n - 1 or done_full != n - 1:
+        raise AssertionError(f'{tag}: propagated {done} and {done_full} of '
+                             f'{n - 1} frames')
+    out['masks'] = np.stack([np.asarray(res_man.get_mask(i))
+                             for i in range(n)])
+    written = len(list(Path(res_man.mask_dir).glob('*.png')))
+    out['candidates'] = ctl.compute_candidates(k=5)
+    ctl.update_config({'top_k': 20, 'mem_every': 5})
+    if ctl.processor.memory.top_k != 20 or ctl.processor.mem_every != 5:
+        raise AssertionError(f'{tag}: update_config did not reach the core')
+    out['stats'] = ctl.memory_stats()
+    if device == 'cuda':
+        out['peak_bytes'] = torch.cuda.max_memory_allocated()
+    # one f-BRS forward on the first click's input, as the check compares
+    model = fbrs.controller.model
+    image = ctl.image(0).permute(2, 0, 1)[None].float()
+    with torch.no_grad():
+        coord = compute_coord_features(image, [[Click(True, (0.5 * h,
+                                                             0.2 * w))]])
+        out['logits'] = model(image, coord).float().cpu().numpy()
+    if profile_click:
+        out['profile'] = _profile_click(fbrs, ctl.image(0), clicks, w, h)
+    if written != n or int(bad.item()) or out['candidates'] is None:
+        raise AssertionError(f'{tag}: {written} of {n} masks written, '
+                             f'{int(bad.item())} non-finite values, '
+                             f'candidates {out["candidates"]}')
+    return out
+
+
+def _profile_click(fbrs, image, clicks, w, h):
+    """The second click (zoom-in and L-BFGS) replayed under torch.profiler
+    on a fresh anchor: (wall ms, {kernel group: device us}, device us,
+    L-BFGS evaluations)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fbrs.unanchor()
+    fx, fy, neg = clicks[0]
+    fbrs.interact(image, fx * w, fy * h, not neg)
+    fx, fy, neg = clicks[1]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fbrs.interact(image, fx * w, fy * h, not neg)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _, groups, total = _kernel_groups(prof)
+    return 1e3 * wall, groups, total, fbrs.last_evaluations
+
+
+def interactive_phase(work: Path, card: str) -> dict:
+    """The session at 854x480, 60 frames, bf16, after a warm-up session of 8
+    frames (cuDNN picks its algorithms): ms per scribble and click,
+    L-BFGS evaluations, frames/s, launches, peak memory, a click's profile.
+    Fails unless K1, K2 and usage launched during the propagation."""
+    synth_interactive_weights(work)
+    interactive_session(work, 'warm', 'cuda', 'bfloat16', 480, 854, 8)
+    n = 60
+    r = interactive_session(work, 'ws480', 'cuda', 'bfloat16', 480, 854, n,
+                            profile_click=True)
+    log(f'[interactive] 854x480, {n} frames, 2 objects, bf16 on {card}:')
+    log(f'[interactive]   scribbles (S2M, both objects in one batch): '
+        + ', '.join(f'{ms:.2f} ms = {ms / 2:.2f} ms/object'
+                    for ms in r['scribble_ms']))
+    log(f'[interactive]   f-BRS-B clicks: '
+        + ', '.join(f'{ms:.2f} ms ({e} L-BFGS evaluations)'
+                    for ms, e in zip(r['click_ms'], r['evaluations'])))
+    log(f'[interactive]   propagate forward {n - 1} frames in '
+        f'{r["propagate_s"]:.3f} s = {(n - 1) / r["propagate_s"]:.2f} '
+        f'frames/s; full propagation {(n - 1) / r["full_s"]:.2f} frames/s; '
+        f'launches {r["launches"]}; candidates {r["candidates"]}; peak '
+        f'{r["peak_bytes"] / 1e9:.3f} GB allocated; gauges {r["stats"]}')
+    wall, groups, total, evals = r['profile']
+    log(f'[interactive]   profile of the second click: wall {wall:.2f} ms, '
+        f'{evals} evaluations, device busy {total / 1e3:.2f} ms '
+        f'({100 * total / 1e3 / wall:.1f}%), idle {wall - total / 1e3:.2f} '
+        f'ms')
+    for grp, us in sorted(groups.items(), key=lambda kv: -kv[1]):
+        log(f'[interactive]     {grp}: {us / 1e3:.2f} ms '
+            f'({100 * us / total:.1f}%)')
+    _launched('interactive propagation', r['launches'])
+    if 'device_bytes_in_use' not in r['stats']:
+        raise AssertionError('memory_stats has no device entry on the card')
+    return r['launches']
+
+
+def interactive_check_phase(work: Path, card: str,
+                            devices=('cuda', 'cpu')):
+    """The session in float32 on a 24-frame 96x160 workspace, on the card
+    and on the CPU (plain version of every kernel), compared."""
+    import numpy as np
+
+    r = {dev: interactive_session(work, f'check_{dev}', dev, 'float32', 96,
+                                  160, 24) for dev in devices}
+    a, b = (r[dev] for dev in devices)
+    s2m = max(float(np.abs(x - y).max()) for x, y in zip(a['s2m'], b['s2m']))
+    logit = float(np.abs(a['logits'] - b['logits']).max()
+                  / np.abs(b['logits']).max())
+    clicks = [int((x != y).sum()) for x, y in zip(a['clicks'], b['clicks'])]
+    frame0 = float((a['frame0'] != b['frame0']).mean())
+    masks = float((a['masks'] != b['masks']).mean())
+    px = b['clicks'][0].size
+    log(f'[interactive-check] f32, 24 frames of 96x160, card vs CPU on '
+        f'{card}: S2M probabilities {s2m:.2e} apart (limit 1e-3); f-BRS '
+        f'logits {logit:.2e} of their largest (limit 1e-4); click masks '
+        f'differ on {clicks} of {px} pixels (limit 1%); frame 0 after the '
+        f'tools {100 * frame0:.4f}%, propagated masks {100 * masks:.4f}% of '
+        f'pixels differ (limit 0.1%); candidates {a["candidates"]} vs '
+        f'{b["candidates"]}; evaluations {a["evaluations"]} vs '
+        f'{b["evaluations"]}')
+    if s2m > 1e-3 or logit > 1e-4:
+        raise AssertionError('card and CPU networks disagree')
+    if max(clicks) > 0.01 * px:
+        raise AssertionError('card and CPU f-BRS masks disagree')
+    if masks > 1e-3:
+        raise AssertionError('card and CPU propagated masks disagree')
+    if a['candidates'] != b['candidates']:
+        raise AssertionError('card and CPU choose other candidates')
+
+
 def kernels_json(rows, launches):
     src = 'xmem2_tpu_torch/ops/csrc/'
     meta = {
@@ -1252,7 +1563,9 @@ def main(argv=None) -> int:
         eval_phase(Path(work), card)
         small_check_phase(Path(work))
         train_phase(Path(work), card)
-    train_check_phase(card)
+        train_check_phase(card)
+        interactive_phase(Path(work), card)
+        interactive_check_phase(Path(work), card)
 
     default, exact = counts.values()
     launches = dict(default, topk_readout_float32=exact['topk_readout'],

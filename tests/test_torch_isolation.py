@@ -24,8 +24,14 @@ def _run(code: str) -> subprocess.CompletedProcess:
 
 
 def test_every_module_imports_without_jax():
+    """Every module imports with JAX blocked and without cv2: none imports
+    cv2 at import time. The two Qt modules (interactive/gui.py and
+    interactive/gui_utils.py) import PyQt5 at module top, which neither
+    machine has: they are imported under tests/qt_stub.py."""
     out = _run("""
 import importlib, pkgutil
+from tests import qt_stub
+qt_stub.install()
 import xmem2_tpu_torch
 names = [m.name for m in pkgutil.walk_packages(xmem2_tpu_torch.__path__,
                                                'xmem2_tpu_torch.')]
@@ -45,8 +51,28 @@ missing = {'xmem2_tpu_torch.eval', 'xmem2_tpu_torch.run_experiments',
            'xmem2_tpu_torch.train.vos_dataset',
            'xmem2_tpu_torch.train.static_dataset',
            'xmem2_tpu_torch.train.loader', 'xmem2_tpu_torch.utils.logger',
-           'xmem2_tpu_torch.utils.load_subset'} - set(names)
+           'xmem2_tpu_torch.utils.load_subset',
+           'xmem2_tpu_torch.utils.image_loader',
+           'xmem2_tpu_torch.interactive.interactive_utils',
+           'xmem2_tpu_torch.interactive.raster',
+           'xmem2_tpu_torch.interactive.clicks.dist_maps',
+           'xmem2_tpu_torch.interactive.s2m.network',
+           'xmem2_tpu_torch.interactive.s2m.controller',
+           'xmem2_tpu_torch.interactive.interaction',
+           'xmem2_tpu_torch.interactive.resource_manager',
+           'xmem2_tpu_torch.interactive.session',
+           'xmem2_tpu_torch.interactive.fbrs.model',
+           'xmem2_tpu_torch.interactive.fbrs.hrnet',
+           'xmem2_tpu_torch.interactive.fbrs.utils',
+           'xmem2_tpu_torch.interactive.fbrs.transforms',
+           'xmem2_tpu_torch.interactive.fbrs.predictor',
+           'xmem2_tpu_torch.interactive.fbrs.controller',
+           'xmem2_tpu_torch.interactive.gui_utils',
+           'xmem2_tpu_torch.interactive.gui',
+           'xmem2_tpu_torch.interactive_demo',
+           'xmem2_tpu_torch.import_existing'} - set(names)
 assert not missing, missing
+assert 'cv2' not in sys.modules
 print('imported', len(names))
 """)
     assert out.returncode == 0, out.stderr
@@ -97,6 +123,33 @@ def test_entry_points_raise_without_cuda(tmp_path):
                         '--output', str(tmp_path / 'eval')])
     with pytest.raises(RuntimeError, match='CUDA'):
         load_model(str(tmp_path / 'ckpt.pth'))
+
+
+def test_interactive_entry_points_raise_without_cuda(tmp_path):
+    """S2MController, FBRSController, a SessionController's processor and
+    interactive_demo.main run on the card unless asked for the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip('a CUDA device is present')
+    from xmem2_tpu_torch import interactive_demo
+    from xmem2_tpu_torch.config import VIDEO_INFERENCE_CONFIG
+    from xmem2_tpu_torch.inference.core import InferenceCore
+    from xmem2_tpu_torch.inference.net import XMemNet
+    from xmem2_tpu_torch.interactive.fbrs.controller import FBRSController
+    from xmem2_tpu_torch.interactive.fbrs.model import FBRSModel
+    from xmem2_tpu_torch.interactive.s2m import S2MController, S2MNet
+    from xmem2_tpu_torch.models.network import XMem
+
+    s2m = {k: v.numpy() for k, v in S2MNet(8, 8, 16, 8).state_dict().items()}
+    with pytest.raises(RuntimeError, match='CUDA'):
+        S2MController(s2m, 1)
+    torch.save(FBRSModel(8, 8, 16).state_dict(), tmp_path / 'fbrs.pth')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        FBRSController(str(tmp_path / 'fbrs.pth'))
+    net = XMemNet(XMem(key_dim=8, value_dim=16, hidden_dim=4), device='cpu')
+    with pytest.raises(RuntimeError, match='CUDA'):
+        InferenceCore(net, dict(VIDEO_INFERENCE_CONFIG))   # the processor
+    with pytest.raises(RuntimeError, match='CUDA'):
+        interactive_demo.main(['--images', str(tmp_path)])
 
 
 def test_training_needs_cuda_unless_asked_for_the_cpu(tmp_path):

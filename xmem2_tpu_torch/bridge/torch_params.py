@@ -65,12 +65,17 @@ def _flatten(tree: Mapping, prefix: str = '') -> Dict[str, np.ndarray]:
     return out
 
 
-def params_from_jax(tree) -> Tuple[Dict[str, np.ndarray], Dims]:
-    """The JAX package's parameter tree -> (reference-layout state dict,
-    dims). `tree` is the nested dict of numpy arrays (XMemParams.tree, or an
-    object with a `.tree`), or an already flat {dotted name: array} dict as
-    stored in the JAX .npz format."""
-    tree = getattr(tree, 'tree', tree)
+def tree_to_state_dict(tree) -> Dict[str, np.ndarray]:
+    """A JAX package parameter tree (nested dict of numpy arrays, HWIO convs,
+    [in, out] linears; or an already flat {dotted name: array} dict) ->
+    the reference-layout state dict: names joined with dots, OIHW convs,
+    [out, in] linears. It serves the XMem tree and the interactive models'
+    (load_s2m_params, xmem2_tpu/interactive/s2m/network.py:106-125;
+    load_fbrs_params, xmem2_tpu/interactive/fbrs/model.py:194-217, DeepLabV3+
+    or HRNet+OCR), whose state dicts S2MNet and the f-BRS models load
+    strictly: the f-BRS ASPP pooling branch's 'gap' level is a level of the
+    reference's names (aspp.concurent.4.gap.1), so joining the keys restores
+    it."""
     flat = _flatten(tree)
     bn_prefixes = {k.rsplit('.', 1)[0] for k in flat
                    if k.endswith('running_mean')}
@@ -82,6 +87,15 @@ def params_from_jax(tree) -> Tuple[Dict[str, np.ndarray], Dims]:
         elif leaf == 'weight' and a.ndim == 2 and prefix not in bn_prefixes:
             a = np.transpose(a, (1, 0))                # [in,out] -> [out,in]
         sd[name] = np.ascontiguousarray(a)
+    return sd
+
+
+def params_from_jax(tree) -> Tuple[Dict[str, np.ndarray], Dims]:
+    """The JAX package's parameter tree -> (reference-layout state dict,
+    dims). `tree` is the nested dict of numpy arrays (XMemParams.tree, or an
+    object with a `.tree`), or an already flat {dotted name: array} dict as
+    stored in the JAX .npz format."""
+    sd = tree_to_state_dict(getattr(tree, 'tree', tree))
     return sd, sniff_dims(sd)
 
 

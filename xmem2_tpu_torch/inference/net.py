@@ -13,7 +13,7 @@ import torch
 from xmem2_tpu_torch.config import pin_f32_precision, resolve_device, \
     resolve_dtype_name, torch_dtype
 from xmem2_tpu_torch.models.network import XMem
-from xmem2_tpu_torch.models.resnet import BatchNorm2d
+from xmem2_tpu_torch.models.resnet import cast_weights
 
 
 class XMemNet:
@@ -28,11 +28,7 @@ class XMemNet:
         self.dtype = torch_dtype(resolve_dtype_name(compute_dtype,
                                                     self.device))
         model = model.to(self.device).eval().requires_grad_(False)
-        for m in model.modules():
-            if not isinstance(m, BatchNorm2d):   # BN statistics stay f32
-                for p in m.parameters(recurse=False):
-                    p.data = p.data.to(self.dtype)
-        self.model = model
+        self.model = cast_weights(model, self.dtype)   # BN stays f32
 
     @property
     def key_dim(self) -> int:

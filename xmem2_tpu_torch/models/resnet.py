@@ -74,15 +74,17 @@ class BasicBlock(nn.Module):
 
 
 class Bottleneck(nn.Module):
-    """ResNet-50 block (reference model/resnet.py:78-114)."""
+    """ResNet-50 block (reference model/resnet.py:78-114); `dilation` dilates
+    and pads the 3x3 conv (the interactive layer's dilated trunks)."""
     expansion = 4
 
-    def __init__(self, cin, planes, stride=1):
+    def __init__(self, cin, planes, stride=1, dilation=1):
         super().__init__()
         cout = planes * self.expansion
         self.conv1 = Conv2d(cin, planes, 1, bias=False)
         self.bn1 = BatchNorm2d(planes)
-        self.conv2 = conv3x3(planes, planes, stride)
+        self.conv2 = Conv2d(planes, planes, 3, stride=stride,
+                            padding=dilation, dilation=dilation, bias=False)
         self.bn2 = BatchNorm2d(planes)
         self.conv3 = Conv2d(planes, cout, 1, bias=False)
         self.bn3 = BatchNorm2d(cout)
@@ -98,6 +100,17 @@ class Bottleneck(nn.Module):
         out = self.bn3(self.conv3(out))
         residual = x if self.downsample is None else self.downsample(x)
         return torch.relu(out + residual)
+
+
+def cast_weights(model: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """Every parameter but the batch norms' in `dtype`, in place: the compute
+    dtype of Conv2d, which casts its input to its weight's dtype (the JAX
+    package's conv2d(dtype=...)); batch norm stays float32."""
+    for m in model.modules():
+        if not isinstance(m, BatchNorm2d):
+            for p in m.parameters(recurse=False):
+                p.data = p.data.to(dtype)
+    return model
 
 
 def make_layer(block, cin, planes, blocks, stride):

@@ -33,20 +33,23 @@ def avg_pool(x: torch.Tensor, window: int) -> torch.Tensor:
     return F.avg_pool2d(x.float(), window).to(x.dtype)
 
 
-def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize, align_corners=False, no antialiasing, over the two
-    trailing dims of [..., H, W] (torch F.interpolate(mode='bilinear'), the
-    function the JAX package reproduces by hand). Integer upscale factors
-    (the decoder's 2x/4x) and arbitrary sizes (frame resize, mask resize
-    back) take the same call; the JAX package's shifted-add path for integer
-    factors is a TPU gather-avoidance computing the same values."""
+def resize_bilinear(x: torch.Tensor, out_hw: Tuple[int, int],
+                    align_corners: bool = False) -> torch.Tensor:
+    """Bilinear resize, no antialiasing, over the two trailing dims of
+    [..., H, W] (torch F.interpolate(mode='bilinear'), the function the JAX
+    package reproduces by hand), computed in float32. align_corners=True is
+    the convention of the f-BRS models and transforms. Integer upscale
+    factors (the decoder's 2x/4x) and arbitrary sizes (frame resize, mask
+    resize back) take the same call; the JAX package's shifted-add path for
+    integer factors is a TPU gather-avoidance computing the same values."""
     h, w = x.shape[-2:]
-    if (h, w) == tuple(out_hw):
+    out_hw = tuple(int(s) for s in out_hw)
+    if (h, w) == out_hw:
         return x
     lead = x.shape[:-2]
     x4 = x.float().reshape((-1, 1) + (h, w)) if x.dim() != 4 else x.float()
-    out = F.interpolate(x4, size=tuple(out_hw), mode='bilinear',
-                        align_corners=False)
+    out = F.interpolate(x4, size=out_hw, mode='bilinear',
+                        align_corners=align_corners)
     return out.reshape(lead + tuple(out_hw)).to(x.dtype)
 
 
