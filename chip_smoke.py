@@ -39,37 +39,62 @@ fails the run when it fails:
               revived, the next step finite;
   8. eval:    python -m xmem2_tpu_torch.eval on two 854x480 videos of 30
               frames, with --benchmark and with --save_scores;
-  9. check:   the port on the card against the port on the CPU (plain
+  9. merge:   python -m xmem2_tpu_torch.merge_multi_scale over the eval
+              phase's --save_scores tree and an --exact --save_scores run
+              of the same videos: a palette PNG per frame, the zip;
+ 10. shard:   memory sharding: the merge K2 at the gathered shape
+              [G, P, D*S*k] bit-equal to its plain version and the sharded
+              readout against the unsharded one (D = 4 shards of three
+              segments); then run_on_video on 60 frames at 854x480 with two
+              objects, unsharded (chunked, and frame by frame: the path a
+              sharded memory takes) and with memory_shards 2 and 4 placed on
+              this card (shard_devices), in bf16 and f32: masks against the
+              frame-by-frame unsharded run (0.01% of pixels in f32, 0.1% in
+              bf16), K1, K2 and usage launched, K2 launches growing with D,
+              frames/s and peak memory; over real cards when more than one
+              is visible;
+ 11. check:   the port on the card against the port on the CPU (plain
               versions of every kernel) on a small f32 video: masks equal,
               also with augmentation; the same candidates chosen; spill
               archives of the same size;
- 10. train:   the stage-2 loader timed alone (1 and 8 threads), then
+ 12. train:   the stage-2 loader timed alone (worker processes, 1 and 8,
+              beside as many threads reading the same samples; two runs of
+              one seed byte-equal), then
               python -m xmem2_tpu_torch.train on synthetic 854x480 data in
               the reference layouts: stage 0 (batch 8, 3 frames, single
               object) in a plain process, then stage 2 (batch 8, 8 frames,
               3 reference frames, 384 crops, bf16 autocast) for 16 steps
               under torchrun with one process (DDP over NCCL); every loss
               finite; steps/s, samples/s and the step's phases by CUDA
-              events over the steady steps, peak memory, a profiler window
-              of 3 steps by kernel group and the device's busy share;
- 11. train-check: one float32 training step (TF32 off) on the card and on
+              events over the steady steps, the data wait of every step,
+              peak memory, a profiler window of 3 steps by kernel group and
+              the device's busy share;
+ 13. train-check: one float32 training step (TF32 off) on the card and on
               the CPU, same weights and batch: loss within 1e-5 relative,
               every gradient leaf within 1e-3 of its largest entry;
- 12. interactive: a user's session through SessionController (bf16, the
+ 14. syncbn:  batch_norm_train over a one-process NCCL group on the card
+              against the CPU without a group, forward and backward within
+              1e-5 of each output's scale;
+ 15. interactive: a user's session through SessionController (bf16, the
               demo's default) on a workspace that python -m
               xmem2_tpu_torch.import_existing and ResourceManager build from
               60 synthetic 854x480 frames with two objects, with seeded S2M
               and f-BRS checkpoints at the published widths: a scribble per
               object (S2M), three f-BRS-B clicks and an undo, a brush
               stroke, a reference, propagation forward, full propagation,
-              candidates, a live config change and the memory gauges; ms
-              per scribble and click, L-BFGS evaluations a click, frames/s,
+              candidates (every frame admitted: min_mask_presence_percent
+              0), a live config change and the memory gauges; ms per
+              scribble and click, L-BFGS evaluations a click, frames/s,
               launch counts, peak memory and a profile of one click;
- 13. interactive-check: the same session in float32 on a 24-frame 96x160
+ 16. interactive-check: the same session in float32 on a 24-frame 96x160
               workspace on the card and on the CPU: S2M probabilities within
               1e-3, one f-BRS forward within 1e-4 of its largest logit,
               f-BRS masks after L-BFGS equal on >= 99% of pixels,
-              propagated masks on >= 99.9%, the same candidates.
+              propagated masks on >= 99.9%, the same candidates; then two
+              clicks with each of the six predictor modes on both f-BRS
+              backbones (ResNet-50 DeepLabV3+ and HRNet-18+OCR at its
+              default widths; at most 4 L-BFGS evaluations a click): masks
+              within 1% of pixels, the same L-BFGS evaluation counts.
 
 The second-to-last line of output is the kernels JSON line; the last line is
 {"ok": true, "device": {...}}.
@@ -83,6 +108,8 @@ parent commit unpacked with `git archive`), on the same inputs.
 import contextlib
 import json
 import math
+import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -868,18 +895,178 @@ def eval_phase(work: Path, card: str):
     return out
 
 
-def _worst_mask_diff(dir_a: Path, dir_b: Path) -> float:
-    """The largest share of pixels that differ in one frame between two
-    runs' masks."""
+def merge_phase(work: Path, card: str):
+    """python -m xmem2_tpu_torch.merge_multi_scale over the eval phase's
+    --save_scores tree and an --exact --save_scores run of the same two
+    videos (DAVIS layout): one palette PNG per frame, the zip."""
     import numpy as np
     from PIL import Image
-    worst = 0.0
+    from xmem2_tpu_torch import eval as port_eval
+
+    base = ['--dataset', 'G', '--generic_path', str(work / 'generic'),
+            '--model', str(work / 'synth_xmem.pth')]
+    port_eval.main(base + ['--output', str(work / 'eval_exact_scores'),
+                           '--save_scores', '--exact'])
+    runs = [work / 'eval_save_scores', work / 'eval_exact_scores']
+    out = work / 'merged'
+    cmd = [sys.executable, '-m', 'xmem2_tpu_torch.merge_multi_scale',
+           '--dataset', 'D', '--list'] + [str(r) for r in runs] + [
+           '--output', str(out), '--num_proc', '4']
+    t0 = time.perf_counter()
+    done = subprocess.run(cmd, cwd=work, capture_output=True, text=True,
+                          timeout=300, env=dict(
+                              os.environ,
+                              PYTHONPATH=str(Path(__file__).resolve().parent)))
+    seconds = time.perf_counter() - t0
+    if done.returncode != 0:
+        raise AssertionError(f'merge_multi_scale failed:\n'
+                             f'{done.stderr[-3000:]}')
+    changed, total = 0, 0
+    for vid in ('a', 'b'):
+        scores = sorted((runs[0] / 'Scores' / vid).glob('*.npz'))
+        pngs = sorted((out / vid).glob('*.png'))
+        if [p.stem for p in pngs] != [p.stem for p in scores] or \
+                len(pngs) != 30:
+            raise AssertionError(f'merge: {len(pngs)} PNGs for {len(scores)} '
+                                 f'score files of video {vid}')
+        for png in pngs:
+            im = Image.open(png)
+            if im.mode != 'P':
+                raise AssertionError(f'merge: {png} is not a palette PNG')
+            one = np.asarray(Image.open(runs[0] / 'Annotations' / vid /
+                                        png.name))
+            changed += int((np.asarray(im) != one).sum())
+            total += one.size
+    if not Path(str(out) + '.zip').exists():
+        raise AssertionError('merge: no zip written')
+    log(f'[merge] two --save_scores runs (bf16 and --exact) of two 854x480 '
+        f'videos merged in {seconds:.2f} s (a process, 4 workers) on {card}: '
+        f'60 palette PNGs, the zip; {changed / total:.4%} of pixels differ '
+        f'from the bf16 run alone')
+
+
+def _mask_diff(dir_a: Path, dir_b: Path):
+    """(share of all pixels, largest share in one frame) that differ between
+    two runs' masks."""
+    import numpy as np
+    from PIL import Image
+    worst, diff, total = 0.0, 0, 0
     files = sorted((dir_a / 'masks').glob('*.png'))
     for f in files:
         a = np.asarray(Image.open(f).convert('RGB'))
         b = np.asarray(Image.open(dir_b / 'masks' / f.name).convert('RGB'))
-        worst = max(worst, float(np.any(a != b, axis=-1).mean()))
-    return worst if files else 1.0
+        d = np.any(a != b, axis=-1)
+        worst = max(worst, float(d.mean()))
+        diff, total = diff + int(d.sum()), total + d.size
+    return (diff / total, worst) if files else (1.0, 1.0)
+
+
+def _worst_mask_diff(dir_a: Path, dir_b: Path) -> float:
+    """The largest share of pixels that differ in one frame between two
+    runs' masks."""
+    return _mask_diff(dir_a, dir_b)[1]
+
+
+SHARD_TOL = {'f32': 1e-4, 'bf16': 1e-3}
+
+
+def shard_kernel_check(card: str):
+    """The three segments of the kernel phase split into D = 4 shards (12
+    pieces): every piece's K2 lists, their merge at the gathered shape
+    [G, P, D*S*k] and the stats bit-equal to the plain versions; the
+    sharded readout against the unsharded one (f32 values); the whole
+    sharded call timed beside the unsharded call."""
+    import torch
+    from xmem2_tpu_torch.ops import readout_kernel as RK
+    from xmem2_tpu_torch.ops.similarity import get_similarity_padded
+    from xmem2_tpu_torch.parallel import sharded_readout as SR
+
+    dev, d, k, p = torch.device('cuda'), 4, 30, 1620
+    qk, qe, segs = _segments(dev, p)
+    sharded = [list(zip(*SR.shard_memory_bank(*seg, [dev] * d)))
+               for seg in segs]
+    pieces = [piece for shards in sharded for piece in shards]
+    sims = [get_similarity_padded(mk, ms, qk, qe, p, mk.shape[0])
+            for mk, ms, _, _ in pieces]
+    valids = [piece[3] for piece in pieces]
+    # each piece's lists, their merge at the gathered shape and the stats
+    _check_k2(RK, sims, valids, k, f'{d} shards')
+    gathered = (valids[0].shape[0], p, len(pieces) * k)
+    out, _ = SR.sharded_topk_readout_multi(sharded, qk, qe, (0, 1), k)
+    ref, _ = RK.fused_topk_readout_multi(segs, qk, qe, (0, 1), k)
+    err = (out - ref).abs().max().item()
+    ms = _time_ms(lambda: SR.sharded_topk_readout_multi(
+        sharded, qk, qe, (0, 1), k), 10)
+    ms_one = _time_ms(lambda: RK.fused_topk_readout_multi(
+        segs, qk, qe, (0, 1), k), 10)
+    log(f'[shard] P={p}, three segments in {d} shards on one card: merge K2 '
+        f'at [{", ".join(map(str, gathered))}] and the stats '
+        f'bit-equal to plain; sharded readout vs unsharded max abs err '
+        f'{err:.3e} (tol {KERNEL_TOL["float32"]}); match ms sharded '
+        f'{ms:.4f}, unsharded {ms_one:.4f} (f32 values) on {card}')
+    if err > KERNEL_TOL['float32']:
+        raise AssertionError('the sharded readout disagrees')
+
+
+def shard_phase(work: Path, card: str):
+    """run_on_video over the first 60 frames of a 854x480 video with two
+    objects (annotated on frames 0 and 30): unsharded (chunked, the default,
+    and frame by frame, the path a sharded memory takes) and with
+    memory_shards 2 and 4 on this card, in bf16 and f32. Returns the
+    launches of the runs with 4 shards, by dtype."""
+    import torch
+    from xmem2_tpu_torch.ops.readout_kernel import LAUNCHES, \
+        reset_launch_counts
+
+    shard_kernel_check(card)
+    n = 60
+    imgs, anns = synth_video(work / 'video_shard', 480, 854, n, 30)
+    ckpt = work / 'synth_xmem.pth'
+    exact = {'compute_dtype': 'float32', 'value_store_dtype': 'float32'}
+    runs = (('unsharded', {}, None), ('frame by frame', {'chunk_frames':
+                                                          False}, None),
+            ('2 shards', {'memory_shards': 2}, 2),
+            ('4 shards', {'memory_shards': 4}, 4))
+    if torch.cuda.device_count() > 1:
+        d = min(torch.cuda.device_count(), 4)
+        runs += ((f'{d} shards on {d} cards', {'memory_shards': d}, 0),)
+    else:
+        log('[shard] one card is visible: every shard is on cuda:0 '
+            '(shard_devices); no run over several cards')
+    counts = {}
+    for dtype, over in (('bf16', {}), ('f32', exact)):
+        for tag, extra, shards in runs:
+            out = work / f'shard_{dtype}_{tag.replace(" ", "_")}'
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            seconds, written, bad = _run(
+                imgs, anns, out, ckpt, 'cuda', dict(over, **extra),
+                frames=(0, 30), shard_devices=['cuda:0'] * shards
+                if shards else None)
+            counts[dtype, tag] = dict(LAUNCHES)
+            peak = torch.cuda.max_memory_allocated() / 1e9
+            share, worst = _mask_diff(
+                work / f'shard_{dtype}_frame_by_frame', out) \
+                if tag != 'unsharded' else (0.0, 0.0)
+            log(f'[shard] {dtype}, {tag}: {n} frames at 854x480 in '
+                f'{seconds:.3f} s = {n / seconds:.2f} frames/s, peak '
+                f'{peak:.3f} GB allocated on {card}; masks vs frame by frame '
+                f'{share:.5%} of pixels (worst frame {worst:.4%}); launches '
+                f'{counts[dtype, tag]}')
+            if written != n or bad:
+                raise AssertionError(f'shard {dtype} {tag}: {written} of {n} '
+                                     f'masks, {bad} non-finite')
+            if 'memory_shards' in extra:
+                _launched(f'shard {dtype} {tag}', counts[dtype, tag])
+                if share > SHARD_TOL[dtype]:
+                    raise AssertionError(f'shard {dtype} {tag}: masks differ '
+                                         f'on {share:.5%} of pixels')
+        k2 = [counts[dtype, t]['block_topk_candidates'] for t in
+              ('frame by frame', '2 shards', '4 shards')]
+        if not k2[0] < k2[1] < k2[2]:
+            raise AssertionError(f'shard {dtype}: K2 launches {k2} do not '
+                                 f'grow with the shard count')
+    return {dtype: counts[dtype, '4 shards'] for dtype in ('bf16', 'f32')}
 
 
 def small_check_phase(work: Path):
@@ -1035,14 +1222,18 @@ TRAIN_GROUPS = (
 
 def _report_stage(s: dict, card: str, warmup: int = 2) -> dict:
     """Logs one stage of --stats: rates over the steady steps (after the
-    warm-up, not the first batch of a fresh loader, not profiled), the
-    phase split, peak memory, the profile by group and the device's busy
+    warm-up, not the first batch of a fresh loader, neither profiled nor
+    right after the profiled window), the phase split, the data wait of
+    every step, peak memory, the profile by group and the device's busy
     share of the window. Fails on a non-finite loss."""
     import numpy as np
     losses = np.asarray(s['losses'])
     if not np.isfinite(losses).all():
         raise AssertionError(f'stage {s["stage"]}: non-finite loss {losses}')
-    skip = set(s['fresh_loader_steps']) | set(s['profiled_steps'])
+    # the step after the profiled window waits for the profiler's own
+    # processing of the window, not for data
+    skip = set(s['fresh_loader_steps']) | set(s['profiled_steps']) | \
+        {max(s['profiled_steps'], default=-2) + 1}
     steady = [i for i in range(warmup, len(losses)) if i not in skip]
     phases = s['phases_ms']
     split = {k: float(np.mean([phases[i][k] for i in steady]))
@@ -1064,6 +1255,9 @@ def _report_stage(s: dict, card: str, warmup: int = 2) -> dict:
         f'{split["backward"]:.1f}, optimizer {split["optimizer"]:.1f} (first '
         f'step {out["first_ms"]:.0f} ms); peak memory allocated '
         f'{out["peak_gb"]:.2f} GB')
+    log(f'[train]   data wait a step (ms): '
+        f'{[round(p["data"]) for p in phases]}; fresh loaders at steps '
+        f'{s["fresh_loader_steps"]}, profiled steps {s["profiled_steps"]}')
     prof = s['profile']
     if prof is None:
         return out
@@ -1096,29 +1290,65 @@ def _report_stage(s: dict, card: str, warmup: int = 2) -> dict:
 
 def loader_alone(data: Path):
     """The stage-2 loader's rate with nothing else running: seconds a batch
-    (8 clips of 8 frames at 384 crops) with one worker thread over one
-    batch, and with the training runs' 8 threads over 8 batches."""
+    (8 clips of 8 frames at 384 crops) with one worker process over one
+    batch and with the training runs' 8 processes over 8 batches, beside a
+    pool of as many threads reading the same samples (the loader's design
+    before worker processes); and two runs of the process loader with one
+    seed give byte-equal batches."""
     import os
+    from concurrent.futures import ThreadPoolExecutor
 
-    from xmem2_tpu_torch.train.loader import DataLoader
+    import torch
+    from xmem2_tpu_torch.train.loader import DataLoader, _stack
     from xmem2_tpu_torch.train.vos_dataset import VOSDataset
     from xmem2_tpu_torch.utils.load_subset import load_sub_davis
 
     davis = data / 'DAVIS' / '2017' / 'trainval'
-    ds = VOSDataset(str(davis / 'JPEGImages' / '480p'),
-                    str(davis / 'Annotations' / '480p'), 5, is_bl=False,
-                    subset=load_sub_davis(), num_frames=8, seed=1)
+
+    def dataset():
+        """The 16 videos four times over (as stage 2 repeats DAVIS): 8
+        batches an epoch."""
+        return torch.utils.data.ConcatDataset([VOSDataset(
+            str(davis / 'JPEGImages' / '480p'),
+            str(davis / 'Annotations' / '480p'), 5, is_bl=False,
+            subset=load_sub_davis(), num_frames=8, seed=1)] * 4)
+
+    def first(loader, batches):
+        """(the first batches, seconds until the last of them came: the
+        workers' shutdown, which waits for the batches they prefetch, is
+        left out)."""
+        t0 = time.perf_counter()
+        it = iter(loader)
+        out = [next(it) for _ in range(batches)]
+        seconds = time.perf_counter() - t0
+        it.close()                          # stops the workers
+        return out, seconds
+
     rate = {}
     for workers, batches in ((1, 1), (8, 8)):
-        loader = DataLoader(ds, 8, shuffle=True, num_workers=workers, seed=1)
+        loader = DataLoader(dataset(), 8, shuffle=True, num_workers=workers,
+                            seed=1)
+        rate['processes', workers] = first(loader, batches)[1] / batches
+        ds, idx = dataset(), loader._indices()
         t0 = time.perf_counter()
-        for i, _ in enumerate(loader):
-            if i + 1 == batches:
-                break
-        rate[workers] = (time.perf_counter() - t0) / batches
+        with ThreadPoolExecutor(workers) as pool:
+            list(pool.map(lambda b: _stack([ds[int(i)] for i in
+                                            idx[8 * b:8 * b + 8]]),
+                          range(batches)))
+        rate['threads', workers] = (time.perf_counter() - t0) / batches
+    runs = [first(DataLoader(dataset(), 8, shuffle=True, num_workers=8,
+                             seed=1), 2)[0] for _ in range(2)]
+    same = all(x['info'] == y['info'] and all(
+        torch.equal(x[k], y[k]) for k in x if k != 'info')
+        for x, y in zip(*runs))
     log(f'[train] stage-2 loader alone ({os.cpu_count()} host cores): '
-        f'{rate[1]:.3f} s a batch with 1 thread, {rate[8]:.3f} s a batch '
-        f'with 8 threads')
+        f'{rate["processes", 1]:.3f} s a batch with 1 worker process, '
+        f'{rate["processes", 8]:.3f} s with 8; a pool of threads reading '
+        f'the same samples: {rate["threads", 1]:.3f} s with 1, '
+        f'{rate["threads", 8]:.3f} s with 8; two runs of one seed '
+        f'{"byte-equal" if same else "DIFFER"} over 2 batches')
+    if not same:
+        raise AssertionError('the process loader is not deterministic')
 
 
 def train_phase(work: Path, card: str):
@@ -1214,24 +1444,83 @@ def train_check_phase(card: str):
         raise AssertionError(f'card and CPU gradients disagree: {worst}')
 
 
+def syncbn_phase(card: str):
+    """nn.functional.batch_norm_train over a one-process NCCL group (world
+    size 1, so the group's batch is this batch) on the card against the CPU
+    without a group, at a ResNet stem's shape (8 x 64 x 96 x 96): the
+    output, the batch statistics and the gradients of input, weight and
+    bias within 1e-5 of each one's largest entry."""
+    import socket
+
+    import torch
+    import torch.distributed as dist
+    from xmem2_tpu_torch.nn.functional import batch_norm_train
+
+    with socket.socket() as s:
+        s.bind(('localhost', 0))
+        port = s.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group('nccl', init_method=f'tcp://localhost:{port}',
+                            world_size=1, rank=0)
+    try:
+        gen = torch.Generator().manual_seed(5)
+        x = torch.randn(8, 64, 96, 96, generator=gen) * 2 + 0.5
+        weight = torch.rand(64, generator=gen) + 0.5
+        bias = torch.randn(64, generator=gen)
+        grad = torch.randn(x.shape, generator=gen)
+        got = {}
+        for dev, group in (('cuda', dist.group.WORLD), ('cpu', None)):
+            leaves = [t.to(dev, copy=True).requires_grad_()
+                      for t in (x, weight, bias)]
+            out, mean, var = batch_norm_train(*leaves, group=group)
+            (out * grad.to(dev)).sum().backward()
+            got[dev] = [t.detach().cpu() for t in (out, mean, var)] + \
+                [t.grad.cpu() for t in leaves]
+    finally:
+        dist.destroy_process_group()
+    names = ('out', 'mean', 'var', 'grad x', 'grad weight', 'grad bias')
+    err = {n: float((a - b).abs().max() / b.abs().max())
+           for n, a, b in zip(names, got['cuda'], got['cpu'])}
+    log(f'[syncbn] batch_norm_train over a one-process NCCL group, 8 x 64 x '
+        f'96 x 96 f32, card vs CPU on {card}: '
+        + ', '.join(f'{n} {e:.2e}' for n, e in err.items())
+        + ' of the largest entry (limit 1e-5)')
+    if max(err.values()) > 1e-5:
+        raise AssertionError(f'syncbn: card and CPU disagree: {err}')
+
+
 # ---------------------------------------------------------------------------
 # phase 12-13: the interactive layer
 # ---------------------------------------------------------------------------
 
+# seeded as they are, HRNet's fusions sum their branches stage after stage
+# and its features reach ~1e8: the last batch norm of every residual branch
+# and of every fusion is damped x0.1
+HRNET_DAMPED = (r'(branches\.\d+\.\d+\.bn2|layer1\.\d+\.bn3|'
+                r'fuse_layers\..*\.1)\.weight$')
+
+
 def synth_interactive_weights(work: Path) -> dict:
     """Seeded S2M (DeepLabV3+ ResNet-50, 6 input channels, output stride 16)
-    and f-BRS (ResNet-50-v1s DeepLabV3+, output stride 8) checkpoints at the
-    published widths, saved as reference-format .pth files. The last conv
-    of each is tamed so the logits are O(1): masks neither empty nor full."""
+    and f-BRS (ResNet-50-v1s DeepLabV3+, output stride 8; HRNet-18+OCR at
+    interactive/fbrs/hrnet.py's default widths) checkpoints at the published
+    widths, saved as reference-format .pth files. The last conv of each is
+    tamed so the logits are O(1): masks neither empty nor full."""
     import torch
+    from xmem2_tpu_torch.interactive.fbrs.hrnet import HRNetModel
     from xmem2_tpu_torch.interactive.fbrs.model import FBRSModel
     from xmem2_tpu_torch.interactive.s2m.network import S2MNet
 
     paths = {}
     for name, module, seed, last, (scale, bias) in (
             ('s2m', S2MNet(), 2, 'classifier.classifier.3', (1e-2, 2.4)),
-            ('fbrs', FBRSModel(), 3, 'head.layers.2', (1e-3, 0.0))):
+            ('fbrs', FBRSModel(), 3, 'head.layers.2', (1e-3, 0.0)),
+            ('hrnet', HRNetModel(), 4, 'feature_extractor.cls_head',
+             (3.0, -16.5))):
         sd = _synth_weights(module, seed)
+        for k in sd:
+            if name == 'hrnet' and re.search(HRNET_DAMPED, k):
+                sd[k] *= 0.1
         sd[last + '.weight'] *= scale
         sd[last + '.bias'][:] = bias
         paths[name] = work / f'synth_{name}.pth'
@@ -1246,14 +1535,16 @@ def _sync(device: str):
 
 
 def interactive_session(work: Path, tag: str, device: str, dtype: str,
-                        h: int, w: int, n: int, profile_click=False) -> dict:
+                        h: int, w: int, n: int, profile_click=False,
+                        presence: float = 0.25) -> dict:
     """A user's session, headless: the workspace from import_existing (n
     synthetic frames with two objects, both annotated on frame 0) opened by
     ResourceManager; on frame 0 a scribble for each object (S2M), f-BRS-B
     clicks on object 1 (positive, positive, negative; zoom-in engages from
     the second) and an undo, a brush stroke; then save_reference,
-    propagate('forward'), full_propagate, compute_candidates(k=5),
-    update_config and memory_stats. Returns what the phases report and
+    propagate('forward'), full_propagate, compute_candidates(k=5) (frames
+    whose masks cover under `presence` percent score 0), update_config and
+    memory_stats. Returns what the phases report and
     compare; raises if a mask is missing or a probability is not finite."""
     import numpy as np
     import torch
@@ -1377,7 +1668,8 @@ def interactive_session(work: Path, tag: str, device: str, dtype: str,
     out['masks'] = np.stack([np.asarray(res_man.get_mask(i))
                              for i in range(n)])
     written = len(list(Path(res_man.mask_dir).glob('*.png')))
-    out['candidates'] = ctl.compute_candidates(k=5)
+    out['candidates'] = ctl.compute_candidates(
+        k=5, min_mask_presence_percent=presence)
     ctl.update_config({'top_k': 20, 'mem_every': 5})
     if ctl.processor.memory.top_k != 20 or ctl.processor.mem_every != 5:
         raise AssertionError(f'{tag}: update_config did not reach the core')
@@ -1426,12 +1718,15 @@ def interactive_phase(work: Path, card: str) -> dict:
     """The session at 854x480, 60 frames, bf16, after a warm-up session of 8
     frames (cuDNN picks its algorithms): ms per scribble and click,
     L-BFGS evaluations, frames/s, launches, peak memory, a click's profile.
-    Fails unless K1, K2 and usage launched during the propagation."""
+    Fails unless K1, K2 and usage launched during the propagation and the
+    candidates (every frame admitted) chose a frame."""
     synth_interactive_weights(work)
     interactive_session(work, 'warm', 'cuda', 'bfloat16', 480, 854, 8)
     n = 60
+    # the seeded weights propagate near-empty masks at 480p: every frame
+    # is admitted to the candidates, as in the select phase
     r = interactive_session(work, 'ws480', 'cuda', 'bfloat16', 480, 854, n,
-                            profile_click=True)
+                            profile_click=True, presence=0.0)
     log(f'[interactive] 854x480, {n} frames, 2 objects, bf16 on {card}:')
     log(f'[interactive]   scribbles (S2M, both objects in one batch): '
         + ', '.join(f'{ms:.2f} ms = {ms / 2:.2f} ms/object'
@@ -1453,6 +1748,9 @@ def interactive_phase(work: Path, card: str) -> dict:
         log(f'[interactive]     {grp}: {us / 1e3:.2f} ms '
             f'({100 * us / total:.1f}%)')
     _launched('interactive propagation', r['launches'])
+    if not any(r['candidates']):
+        raise AssertionError(f'interactive: the candidates chose no frame '
+                             f'({r["candidates"]})')
     if 'device_bytes_in_use' not in r['stats']:
         raise AssertionError('memory_stats has no device entry on the card')
     return r['launches']
@@ -1490,6 +1788,83 @@ def interactive_check_phase(work: Path, card: str,
         raise AssertionError('card and CPU propagated masks disagree')
     if a['candidates'] != b['candidates']:
         raise AssertionError('card and CPU choose other candidates')
+    fbrs_modes_check(work, card, devices)
+
+
+FBRS_MODES = ('NoBRS', 'RGB-BRS', 'DistMap-BRS', 'f-BRS-A', 'f-BRS-B',
+              'f-BRS-C')
+
+
+def _blob_image(h: int, w: int):
+    """A normalised [h, w, 3] float32 image: an ellipse on a background,
+    with seeded noise."""
+    import numpy as np
+    yy, xx = np.mgrid[0:h, 0:w]
+    blob = ((yy - h / 2) / (h / 4)) ** 2 + ((xx - w / 3) / (w / 5)) ** 2 < 1
+    img = np.where(blob[..., None], np.array([1.5, -0.5, -1.0]),
+                   np.array([-0.8, 0.6, 0.4])).astype(np.float32)
+    noise = np.random.default_rng(4).standard_normal((h, w, 3))
+    return img + 0.1 * noise.astype(np.float32)
+
+
+def fbrs_modes_check(work: Path, card: str, devices=('cuda', 'cpu')):
+    """Two clicks (positive on the object, negative off it) through
+    FBRSController with each of the six predictor modes, on both f-BRS
+    backbones (ResNet-50 DeepLabV3+ and HRNet-18+OCR), f32 on a 96x160
+    image, on the card and on the CPU: masks within 1% of pixels, the same
+    L-BFGS evaluation counts. The controller's settings, with the zoom-in
+    target at the image's size and at most 4 L-BFGS evaluations a click
+    (the GUI's 20 let the two devices' trajectories part on these seeded
+    networks: PERF.md section 6)."""
+    import torch
+    from xmem2_tpu_torch.interactive.fbrs.controller import FBRSController
+
+    h, w = 96, 160
+    image = _blob_image(h, w)
+    clicks = ((w / 3, h / 2, True), (0.85 * w, 0.2 * h, False))
+    # the DeepLab head's bias raised from 0 to 2, so that the first click
+    # leaves a sixth of the image foreground: with the sessions' 0.6%, the
+    # f-BRS-A/B iterates part between the two devices within 4 evaluations
+    sd = torch.load(work / 'synth_fbrs.pth')
+    sd['head.layers.2.bias'][:] = 2.0
+    torch.save(sd, work / 'synth_fbrs_modes.pth')
+    rows = []
+    for backbone, ckpt in (('fbrs', 'synth_fbrs_modes.pth'),
+                           ('hrnet', 'synth_hrnet.pth')):
+        ctls = [FBRSController(str(work / ckpt), compute_dtype='float32',
+                               device=dev)
+                for dev in devices]
+        for mode in FBRS_MODES:
+            got = []
+            for dev, ctl in zip(devices, ctls):
+                params = ctl.controller.predictor_params
+                ctl.controller.reset_predictor(dict(
+                    params, brs_mode=mode, lbfgs_params={'maxfun': 4},
+                    zoom_in_params=dict(params['zoom_in_params'],
+                                        target_size=h)))
+                ctl.unanchor()
+                img = torch.from_numpy(image).to(dev)
+                masks, evals = [], []
+                for x, y, pos in clicks:
+                    masks.append(ctl.interact(img, x, y, pos).cpu().numpy())
+                    evals.append(ctl.last_evaluations)
+                got.append((masks, evals))
+            (ma, ea), (mb, eb) = got
+            diff = max(float((x != y).mean()) for x, y in zip(ma, mb))
+            rows.append((backbone, mode, diff, ea, eb,
+                         [float(m.mean()) for m in mb]))
+    log(f'[interactive-check] six predictor modes x two backbones, two '
+        f'clicks each, f32 at 96x160, card vs CPU on {card} (limits: 1% of '
+        f'pixels, equal evaluations):')
+    for backbone, mode, diff, ea, eb, fg in rows:
+        log(f'[interactive-check]   {backbone} {mode}: masks differ on '
+            f'{diff:.4%} of pixels, L-BFGS evaluations {ea} vs {eb}, '
+            f'foreground after each click '
+            + ', '.join(f'{x:.2%}' for x in fg))
+    for backbone, mode, diff, ea, eb, _ in rows:
+        if diff > 0.01 or ea != eb:
+            raise AssertionError(f'{backbone} {mode}: card and CPU clicks '
+                                 f'disagree ({diff:.4%}, {ea} vs {eb})')
 
 
 def kernels_json(rows, launches):
@@ -1561,15 +1936,20 @@ def main(argv=None) -> int:
         select_phase(Path(work), card)
         spill_phase(Path(work), card)
         eval_phase(Path(work), card)
+        merge_phase(Path(work), card)
+        sharded = shard_phase(Path(work), card)
         small_check_phase(Path(work))
         train_phase(Path(work), card)
         train_check_phase(card)
+        syncbn_phase(card)
         interactive_phase(Path(work), card)
         interactive_check_phase(Path(work), card)
 
     default, exact = counts.values()
     launches = dict(default, topk_readout_float32=exact['topk_readout'],
                     topk_readout_bfloat16=default['topk_readout'])
+    log(f'[shard] launches of the 60-frame runs with 4 shards on one card: '
+        f'bf16 {sharded["bf16"]}, f32 {sharded["f32"]}')
     log(card)
     log(json.dumps(kernels_json(rows, launches)))
     log(json.dumps({'ok': True, 'device': {

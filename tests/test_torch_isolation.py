@@ -70,7 +70,12 @@ missing = {'xmem2_tpu_torch.eval', 'xmem2_tpu_torch.run_experiments',
            'xmem2_tpu_torch.interactive.gui_utils',
            'xmem2_tpu_torch.interactive.gui',
            'xmem2_tpu_torch.interactive_demo',
-           'xmem2_tpu_torch.import_existing'} - set(names)
+           'xmem2_tpu_torch.import_existing',
+           'xmem2_tpu_torch.parallel.mesh',
+           'xmem2_tpu_torch.parallel.sharded_readout',
+           'xmem2_tpu_torch.memory.sharded_store',
+           'xmem2_tpu_torch.utils.profiling',
+           'xmem2_tpu_torch.merge_multi_scale'} - set(names)
 assert not missing, missing
 assert 'cv2' not in sys.modules
 print('imported', len(names))
@@ -207,13 +212,30 @@ def test_model_loading_defaults_to_cuda(tmp_path):
 @pytest.mark.parametrize('over,ported', [({'memory_shards': 2}, False),
                                          ({'spill_long_term': True}, True)])
 def test_unported_options_raise(over, ported):
-    """Options not ported yet raise, naming their ROADMAP item; spill is
-    ported."""
+    """Every option of the JAX package is ported now: memory_shards builds
+    a sharded manager (two shards on the CPU), spill_long_term an archive
+    (`ported`: whether the option is the spill)."""
     from xmem2_tpu_torch.config import VIDEO_INFERENCE_CONFIG
     from xmem2_tpu_torch.memory.manager import MemoryManager
-    config = dict(VIDEO_INFERENCE_CONFIG, **over)
-    if ported:
-        assert MemoryManager(config, device='cpu').archive is not None
-    else:
-        with pytest.raises(NotImplementedError, match='ROADMAP'):
-            MemoryManager(config, device='cpu')
+    mm = MemoryManager(dict(VIDEO_INFERENCE_CONFIG, **over), device='cpu')
+    assert (mm.archive is not None) == ported
+    assert mm.sharded == (not ported)
+    if mm.sharded:
+        assert mm.shard_devices == [torch.device('cpu')] * 2
+
+
+def test_memory_devices_need_enough_cards():
+    """memory_devices raises when fewer CUDA devices are visible than
+    shards (as JAX memory_mesh does), so a sharded manager on the card does
+    too unless shard_devices places the shards; on the CPU every shard is
+    the CPU."""
+    from xmem2_tpu_torch.config import VIDEO_INFERENCE_CONFIG
+    from xmem2_tpu_torch.memory.manager import MemoryManager
+    from xmem2_tpu_torch.parallel.mesh import memory_devices
+    n = torch.cuda.device_count() + 1
+    with pytest.raises(ValueError, match='visible'):
+        memory_devices(n, 'cuda')
+    assert memory_devices(3, 'cpu') == [torch.device('cpu')] * 3
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match='CUDA'):
+            MemoryManager(dict(VIDEO_INFERENCE_CONFIG, memory_shards=n))

@@ -329,9 +329,21 @@ sd = {k[3:]: z[k] for k in z.files if k.startswith('sd.')}
 data = {k[5:]: z[k][rank:rank + 1] for k in z.files if k.startswith('data.')}
 config = dict(lr=0.0, weight_decay=0.0, num_frames=3, num_ref_frames=2,
               deep_update_prob=1.0, start_warm=10, end_warm=20, amp=False)
-trainer = XMemTrainer(config, sd, (64, 512, 64), device='cpu')
+logged = {}
+
+
+class Logger:
+    def log_scalar(self, key, value, it):
+        logged[key[len('train/'):]] = value
+
+
+trainer = XMemTrainer(config, sd, (64, 512, 64), logger=Logger(),
+                      device='cpu')
 assert isinstance(trainer.net, torch.nn.parallel.DistributedDataParallel)
-trainer.do_pass(data, 0)
+losses = trainer.do_pass(data, 0)
+np.savez(sys.argv[2] + f'.losses{rank}.npz',
+         **{'returned.' + k: float(v) for k, v in losses.items()},
+         **{'logged.' + k: v for k, v in logged.items()})
 if rank == 0:
     np.savez(sys.argv[2], **{n: p.grad.numpy()
                              for n, p in trainer.model.named_parameters()})
@@ -344,7 +356,9 @@ def test_ddp_two_processes_match_one(ref, tmp_path):
     gradients of one process with both samples: within 1e-5 of each leaf's
     largest entry, plus the rounding floor of test_train_forward (1e-7 of
     the largest gradient anywhere; seen: 1.2e-5 of its own largest entry on
-    a leaf whose largest entry is 1e-3 of the largest gradient)."""
+    a leaf whose largest entry is 1e-3 of the largest gradient). The losses
+    each rank returns and logs at a log step are the ranks' average, which
+    is the one process's losses over both samples, within 1e-5."""
     r = ref[False]
     np.savez(tmp_path / 'in.npz',
              **{f'sd.{k}': v for k, v in r['sd'].items()},
@@ -364,7 +378,16 @@ def test_ddp_two_processes_match_one(ref, tmp_path):
 
     config = dict(CONFIG, lr=0.0, weight_decay=0.0)
     one = XMemTrainer(config, r['sd'], r['dims'], device='cpu')
-    one.do_pass(r['data'], 0)
+    one_losses = one.do_pass(r['data'], 0)
+    for rank in range(2):
+        with np.load(tmp_path / f'ddp.npz.losses{rank}.npz') as z:
+            for kind in ('returned', 'logged'):
+                got = {k.split('.', 1)[1]: float(z[k]) for k in z.files
+                       if k.startswith(kind + '.')}
+                assert set(got) == set(one_losses), (kind, sorted(got))
+                for k, v in one_losses.items():
+                    np.testing.assert_allclose(got[k], float(v), rtol=1e-5,
+                                               atol=1e-5, err_msg=(kind, k))
     want = {n: p.grad.numpy() for n, p in one.model.named_parameters()}
     floor = 1e-7 * max(float(np.abs(g).max()) for g in want.values())
     with np.load(tmp_path / 'ddp.npz') as z:

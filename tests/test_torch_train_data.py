@@ -1,8 +1,11 @@
 """The port's training data path against xmem2_tpu: VOS and static dataset
-samples for the same seed and files, the TPS warp against cv2, the loader's
-rank sharding, the configuration's stage defaults, the subset lists and the
-logger's lazy TensorBoard import."""
+samples for the same seed and files, the TPS warp against cv2, the loader
+(worker processes: rank sharding, batches equal to the datasets read in the
+main process after the workers' reseeding, determinism per seed, no draws
+repeated across workers, errors and early exit), the configuration's stage
+defaults, the subset lists and the logger's lazy TensorBoard import."""
 
+import multiprocessing
 import os
 import subprocess
 import sys
@@ -10,6 +13,7 @@ from pathlib import Path
 
 import numpy as np
 import pytest
+import torch
 from PIL import Image
 
 from xmem2_tpu.train import augs as JA
@@ -19,7 +23,7 @@ from xmem2_tpu.train.vos_dataset import VOSDataset as JVOS
 from xmem2_tpu.utils import load_subset as JS
 from xmem2_tpu_torch.train import augs as TA
 from xmem2_tpu_torch.train.configuration import Configuration
-from xmem2_tpu_torch.train.loader import DataLoader
+from xmem2_tpu_torch.train.loader import DataLoader, reseed
 from xmem2_tpu_torch.train.static_dataset import StaticTransformDataset
 from xmem2_tpu_torch.train.vos_dataset import VOSDataset
 from xmem2_tpu_torch.utils import load_subset as TS
@@ -192,11 +196,97 @@ def test_loader_raises_dataset_errors_and_stops():
                         num_workers=2, shuffle=False)
     it = iter(loader)
     next(it)
+    assert len(multiprocessing.active_children()) == 2
     it.close()                              # workers stop, none left
+    assert multiprocessing.active_children() == []
     loader = DataLoader(_Items(12, fail_at=5), batch_size=2, num_workers=2,
                         shuffle=False)
     with pytest.raises(ValueError, match='bad item 5'):
         list(loader)
+    assert multiprocessing.active_children() == []
+
+
+def _batches_equal(got, want):
+    assert len(got) == len(want)
+    for g, w in zip(got, want):
+        assert set(g) == set(w) and g.get('info') == w.get('info')
+        for k in g:
+            if k != 'info':
+                a, b = np.asarray(g[k]), np.asarray(w[k])
+                assert a.dtype == b.dtype, k
+                np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def test_process_loader_equals_main_process_reads(data_root):
+    """One worker process: the batches are the VOS dataset read in the main
+    process in the sampler's order after the worker's reseeding, byte for
+    byte (so test_vos_samples_byte_equal covers what the workers make);
+    rank 1 of 2 in epoch 2."""
+    args = (str(data_root / 'JPEGImages'), str(data_root / 'Annotations'),
+            3, False)
+    kw = dict(num_frames=4, seed=7, crop_size=48,
+              subset={'bear', 'bmx-bumps'})
+    ds = VOSDataset(*args, **kw)
+    loader = DataLoader(ConcatVOS([ds] * 3), batch_size=2, num_workers=1,
+                        rank=1, world_size=2, seed=5)
+    loader.set_epoch(2)
+    got = list(loader)
+    assert len(got) == 1 and got[0]['rgb'].dtype == torch.float32
+    main = ConcatVOS([VOSDataset(*args, **kw)] * 3)
+    reseed(main, seed=5, epoch=2, rank=1, worker_id=0)
+    items = [main[int(i)] for i in loader._indices()[:2]]
+    want = {k: [it[k] for it in items] if k == 'info'
+            else np.stack([it[k] for it in items]) for k in items[0]}
+    _batches_equal(got, [want])
+
+
+class ConcatVOS:
+    """The CLI's ConcatDataset shape: one dataset object several times."""
+
+    def __init__(self, datasets):
+        self.datasets = datasets
+        self.sizes = np.cumsum([len(d) for d in datasets])
+
+    def __len__(self):
+        return int(self.sizes[-1])
+
+    def __getitem__(self, i):
+        d = int(np.searchsorted(self.sizes, i, side='right'))
+        return self.datasets[d][i - (int(self.sizes[d - 1]) if d else 0)]
+
+
+class _Draws:
+    """Each item is its index and three draws from the dataset's one
+    generator, as the augmentations draw."""
+
+    def __init__(self, n, seed=0):
+        self.n = n
+        self.rng = np.random.default_rng(seed)
+
+    def __len__(self):
+        return self.n
+
+    def __getitem__(self, i):
+        return {'i': np.array([i]), 'draws': self.rng.random(3)}
+
+
+def test_process_loader_seeded_and_no_repeated_draws():
+    """Four workers: two runs of one seed give equal batches; no item
+    repeats another's draws (forked workers without reseeding would all
+    start from the same generator state); another epoch draws anew."""
+    def run(epoch):
+        loader = DataLoader(_Draws(32), batch_size=2, num_workers=4, seed=1)
+        loader.set_epoch(epoch)
+        return list(loader)
+
+    a, b = run(0), run(0)
+    _batches_equal(a, b)
+    draws = np.concatenate([x['draws'].numpy() for x in a])
+    assert len({tuple(r) for r in draws}) == len(draws) == 32
+    items = sorted(int(i) for x in a for i in x['i'][:, 0])
+    assert items == list(range(32))
+    other = np.concatenate([x['draws'].numpy() for x in run(1)])
+    assert not {tuple(r) for r in other} & {tuple(r) for r in draws}
 
 
 def test_configuration_defaults_match():

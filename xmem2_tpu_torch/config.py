@@ -2,8 +2,7 @@
 
 VIDEO_INFERENCE_CONFIG has the keys and defaults of xmem2_tpu/config.py
 (reference util/configuration.py:138-162), so `overwrite_config` dicts keep
-working. One key is accepted only at its default in this port:
-`memory_shards` (0).
+working.
 """
 
 import torch
@@ -50,17 +49,10 @@ VIDEO_INFERENCE_CONFIG = {
     'max_object_groups': 4,
     # Archive evicted long-term rows in host memory (memory/spill.py).
     'spill_long_term': False,
-    # Not ported yet: ROADMAP.md Queue 1 item 12 (sharding).
+    # Split every memory store by slot range over this many devices
+    # (parallel/); 0 or 1: one device.
     'memory_shards': 0,
 }
-
-
-def check_supported(config: dict):
-    """Raise on configuration values this port does not implement yet."""
-    if int(config.get('memory_shards', 0) or 0) > 1:
-        raise NotImplementedError(
-            'memory_shards > 1 (multi-GPU memory sharding) is not ported yet: '
-            'ROADMAP.md Queue 1 item 12')
 
 
 def resolve_device(device=None) -> torch.device:

@@ -12,10 +12,10 @@ report, palette PNGs, score dumps for merge_multi_scale (Scores/<video>/
 <frame>.npz and backward.json) and the zips for submission. On the card,
 --benchmark synchronises the device on every frame, the peak memory is
 torch.cuda.max_memory_allocated() and --profile_dir writes a torch.profiler
-trace. Runs on CUDA unless --device cpu is given.
+trace (utils/profiling.device_trace). Runs on CUDA unless --device cpu is
+given.
 """
 
-import contextlib
 import json
 import os
 import shutil
@@ -29,8 +29,7 @@ import torch
 from PIL import Image
 
 from xmem2_tpu_torch.bridge.torch_params import load_model
-from xmem2_tpu_torch.config import VIDEO_INFERENCE_CONFIG, check_supported, \
-    resolve_device
+from xmem2_tpu_torch.config import VIDEO_INFERENCE_CONFIG, resolve_device
 from xmem2_tpu_torch.inference.core import InferenceCore
 from xmem2_tpu_torch.inference.data.mask_mapper import MaskMapper
 from xmem2_tpu_torch.inference.data.test_datasets import (
@@ -38,6 +37,7 @@ from xmem2_tpu_torch.inference.data.test_datasets import (
     YouTubeVOSTestDataset)
 from xmem2_tpu_torch.inference.net import XMemNet
 from xmem2_tpu_torch.inference.postprocess import unpack_mask
+from xmem2_tpu_torch.utils.profiling import device_trace
 from xmem2_tpu_torch.utils.resize_np import resize_bilinear_np
 
 
@@ -80,8 +80,8 @@ def parse_args(argv=None):
                              'InferenceCore.step_chunk (default on)')
     parser.add_argument('--no_chunked', dest='chunked', action='store_false')
     parser.add_argument('--memory_shards', type=int, default=0,
-                        help='multi-GPU memory sharding: not ported yet, '
-                             'values above 1 raise')
+                        help='split the memory banks over this many GPUs '
+                             '(the first ones visible); 0 or 1: one device')
     parser.add_argument('--profile_dir', default=None,
                         help='write a torch.profiler trace (trace.json) '
                              'here')
@@ -123,18 +123,6 @@ def _dataset(args, is_youtube, is_davis, is_lv):
     if args.dataset == 'G':
         return GenericTestDataset(args.generic_path, size=args.size)
     raise NotImplementedError(args.dataset)
-
-
-def _profiler(profile_dir, device):
-    if profile_dir is None:
-        return contextlib.nullcontext()
-    from torch.profiler import ProfilerActivity, profile
-    os.makedirs(profile_dir, exist_ok=True)
-    activities = [ProfilerActivity.CPU] + (
-        [ProfilerActivity.CUDA] if device.type == 'cuda' else [])
-    return profile(activities=activities, on_trace_ready=lambda p:
-                   p.export_chrome_trace(path.join(profile_dir,
-                                                   'trace.json')))
 
 
 def _frame(sample):
@@ -279,7 +267,6 @@ def main(argv=None) -> dict:
         'spill_long_term': args.spill_long_term,
         'memory_shards': args.memory_shards,
     })
-    check_supported(config)
     device = resolve_device(args.device)
 
     if args.output is None:
@@ -297,7 +284,7 @@ def main(argv=None) -> dict:
     if device.type == 'cuda':
         torch.cuda.reset_peak_memory_stats(device)
     total_seconds, total_frames = 0.0, 0
-    with _profiler(args.profile_dir, device):
+    with device_trace(args.profile_dir, device):
         for vid_reader in meta_dataset.get_datasets():
             seconds, frames = _eval_video(vid_reader, network, config, args,
                                           out_path, is_youtube, device)

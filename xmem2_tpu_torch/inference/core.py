@@ -6,7 +6,10 @@ clear_memory :28, remove_from_permanent_memory :181). The host decides the
 frame kind (memory frame / deep update / mask provided) from integer counters,
 exactly as the reference. Images are channels-last [H, W, 3], float
 (normalised) or raw uint8; masks are [O, H, W]. Runs on CUDA unless the
-caller passes device='cpu'.
+caller passes device='cpu'. With memory_shards > 1 the memory is sharded
+(memory/manager.py) and every frame takes step()'s general path: as in the
+JAX package (core.py:316, :441), neither the steady-state frame step nor
+step_chunk runs over a sharded memory.
 """
 
 from typing import List, Optional
@@ -14,7 +17,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from xmem2_tpu_torch.config import check_supported, resolve_device
+from xmem2_tpu_torch.config import resolve_device
 from xmem2_tpu_torch.inference.net import XMemNet
 from xmem2_tpu_torch.inference.postprocess import (
     mask_pack_bits, prob_to_mask_packed)
@@ -25,12 +28,15 @@ from xmem2_tpu_torch.ops.tensor import aggregate, pad_divide_by, unpad
 
 
 class InferenceCore:
-    def __init__(self, network: XMemNet, config: dict, device=None):
+    def __init__(self, network: XMemNet, config: dict, device=None,
+                 shard_devices=None):
+        """shard_devices: the devices of a sharded memory's shards
+        (MemoryManager)."""
         self.device = resolve_device(device)
+        self.shard_devices = shard_devices
         if network.device != self.device:
             raise ValueError(f'network is on {network.device}, core on '
                              f'{self.device}')
-        check_supported(config)
         self.config = config
         self.network = network
         self.size = config.get('size', -1)
@@ -51,7 +57,8 @@ class InferenceCore:
         if keep_permanent:
             self.memory = self.memory.copy_perm_mem_only()
         else:
-            self.memory = MemoryManager(config=self.config, device=self.device)
+            self.memory = MemoryManager(config=self.config, device=self.device,
+                                        shard_devices=self.shard_devices)
 
     def update_config(self, config: dict):
         self.mem_every = config['mem_every']
@@ -130,7 +137,8 @@ class InferenceCore:
         if (mask is None and need_segment
                 and not (is_mem_frame and is_ignore)
                 and self.memory.work_mem_engaged
-                and self.memory.get_hidden() is not None):
+                and self.memory.get_hidden() is not None
+                and not self.memory.sharded):
             res, key, shrinkage, selection, packed = self._plain_frame_step(
                 image, h_out=is_normal_update, mem_frame=is_mem_frame,
                 deep_update=is_deep_update,
@@ -251,7 +259,7 @@ class InferenceCore:
         memory is not engaged. The caller still stops short of the video's
         last frame and of any frame it has a mask for."""
         if (self.all_labels is None or not self.memory.work_mem_engaged
-                or self.memory.get_hidden() is None):
+                or self.memory.get_hidden() is None or self.memory.sharded):
             return 0
         nxt = self.curr_ti + 1
         run_end = self.last_mem_ti + self.mem_every

@@ -38,13 +38,15 @@ from xmem2_tpu_torch.utils.image_saver import ParallelImageSaver
 from xmem2_tpu_torch.utils.iou import compute_array_iou
 
 
-def _load_main_objects(imgs_in_path, masks_in_path, config, device):
+def _load_main_objects(imgs_in_path, masks_in_path, config, device,
+                       shard_devices=None):
     model_path = config.get('model')
     if model_path is None or not os.path.exists(str(model_path)):
         raise FileNotFoundError(f'model checkpoint not found: {model_path}')
     network = XMemNet(load_model(model_path, device),
                       config.get('compute_dtype', 'auto'), device)
-    processor = InferenceCore(network, config=config, device=device)
+    processor = InferenceCore(network, config=config, device=device,
+                              shard_devices=shard_devices)
     return MaskMapper(), processor, _create_reader(imgs_in_path,
                                                    masks_in_path, config)
 
@@ -147,7 +149,7 @@ def _inference_on_video(frames_with_masks, imgs_in_path, masks_in_path,
                         save_overlay=True,
                         object_color_if_single_object=(255, 255, 255),
                         print_fps=False, image_saving_max_queue_size=200,
-                        device=None):
+                        device=None, shard_devices=None):
     device = resolve_device(device)
     frames_with_masks = set(frames_with_masks)
     config = VIDEO_INFERENCE_CONFIG.copy()
@@ -155,7 +157,7 @@ def _inference_on_video(frames_with_masks, imgs_in_path, masks_in_path,
     config['masks_out_path'] = masks_out_path
 
     mapper, processor, vid_reader = _load_main_objects(
-        imgs_in_path, masks_in_path, config, device)
+        imgs_in_path, masks_in_path, config, device, shard_devices)
     vid_length = len(vid_reader)
 
     preload = [0] if original_memory_mechanism else sorted(frames_with_masks)
@@ -278,18 +280,21 @@ def run_on_video(
     compute_iou=False,
     print_progress=True,
     device=None,
+    shard_devices=None,
     **kwargs,
 ):
     """Run inference on a video (signature of the reference run_on_video,
     inference/run_on_video.py:247-282, plus `device`: CUDA unless 'cpu' is
-    passed). Returns one row per frame ('frame', 'mask_provided' and, with
+    passed, and `shard_devices`: with overwrite_config={'memory_shards': D},
+    the devices of the D memory shards, by default the first D visible).
+    Returns one row per frame ('frame', 'mask_provided' and, with
     compute_iou, 'iou'): a pandas DataFrame where pandas is installed, else
     a list of dicts."""
     return _inference_on_video(
         imgs_in_path=imgs_in_path, masks_in_path=masks_in_path,
         masks_out_path=masks_out_path, frames_with_masks=frames_with_masks,
         compute_iou=compute_iou, print_progress=print_progress,
-        device=device, **kwargs)
+        device=device, shard_devices=shard_devices, **kwargs)
 
 
 def read_foreground_masks(masks_dir: Union[str, os.PathLike]

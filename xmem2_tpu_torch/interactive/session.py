@@ -257,10 +257,14 @@ class SessionController:
         return replayed
 
     # --------------------------------------------------------- candidates
-    def compute_candidates(self, k: int = 5) -> Optional[List[int]]:
+    def compute_candidates(self, k: int = 5,
+                           min_mask_presence_percent: float = 0.25
+                           ) -> Optional[List[int]]:
         """Diversity-driven next-annotation candidates from the cached keys
-        (reference gui.py:818-850). Synchronous — callers needing a thread
-        wrap it (the Qt App uses a QThreadPool Worker)."""
+        (reference gui.py:818-850); a frame whose masks cover less than
+        min_mask_presence_percent of it scores 0 (select_next_candidates).
+        Synchronous — callers needing a thread wrap it (the Qt App uses a
+        QThreadPool Worker)."""
         if not self.res_man.all_masks_present():
             self.log('Some frames lack cached keys/masks — run FULL '
                      'propagation first.')
@@ -271,6 +275,7 @@ class SessionController:
             previously_chosen_candidates=sorted(self.res_man.references)
             or [0],
             alpha=0.5, only_new_candidates=True,
+            min_mask_presence_percent=min_mask_presence_percent,
             device=self.res_man.keys.device)]
 
     # ------------------------------------------------------------- import

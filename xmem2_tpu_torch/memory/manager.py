@@ -5,13 +5,22 @@ Counterpart of xmem2_tpu/memory/manager.py (reference
 inference/memory_manager.py: match_memory :61, add_memory :212,
 compress_features :316, consolidation :349, update/remove permanent
 :192/:204, copy_perm_mem_only :392), with the JAX package's host spill of
-evicted long-term rows (`spill_long_term`, memory/spill.py).
+evicted long-term rows (`spill_long_term`, memory/spill.py) and the JAX
+package's memory-bank sharding (`memory_shards`, parallel/).
 
 The readout path follows the device and nothing else: CUDA tensors go through
 the hand-written kernels (ops/readout_kernel.py), CPU tensors through their
 plain versions. Each match is computed over the occupied prefix of each store
 only (the JAX package buckets that width to bound XLA recompiles; eager
 PyTorch has no recompiles, and unoccupied slots carry no weight).
+
+With memory_shards = D > 1 every store is split by slot range over D
+devices (memory/sharded_store.py; capacities rounded up to a multiple of D,
+as in JAX manager.py:351-356) and the match is the sharded readout over the
+shards' full capacity (parallel/sharded_readout.py; JAX _match_sharded
+:526-553). One manager drives every shard, so consolidation and eviction
+keep their global view: they plan on the first device from per-slot
+metadata and apply the plan shard by shard.
 
 Known deviations from the reference, kept from the JAX package (both are
 reference bugs):
@@ -33,13 +42,17 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from xmem2_tpu_torch.config import check_supported, resolve_device, \
-    resolve_dtype_name, torch_dtype
+from xmem2_tpu_torch.config import resolve_device, resolve_dtype_name, \
+    torch_dtype
+from xmem2_tpu_torch.memory import sharded_store as SS
 from xmem2_tpu_torch.memory import store as ST
 from xmem2_tpu_torch.memory.spill import HostArchive
 from xmem2_tpu_torch.memory.store import StoreBuffers
 from xmem2_tpu_torch.ops.readout_kernel import fused_topk_readout_multi
 from xmem2_tpu_torch.ops.similarity import get_similarity, masked_softmax
+from xmem2_tpu_torch.parallel.mesh import memory_devices
+from xmem2_tpu_torch.parallel.sharded_readout import \
+    sharded_topk_readout_multi
 
 
 def _prefix(s: StoreBuffers, n: int):
@@ -79,9 +92,41 @@ def _match_kernel(temp: StoreBuffers, perm: StoreBuffers,
     return out
 
 
-def _consolidate_kernel(temp: StoreBuffers, long: StoreBuffers, *,
-                        num_prototypes: int, min_work_elements: int,
-                        group_ids: Tuple[int, ...]):
+def _match_sharded(temp: SS.ShardedStore, perm: SS.ShardedStore,
+                   long: Optional[SS.ShardedStore], qk: torch.Tensor,
+                   qe: Optional[torch.Tensor], *, group_ids: Tuple[int, ...],
+                   top_k: int, use_long: bool, count_usage: bool,
+                   count_long_usage: bool, use_perm: bool = True,
+                   usage_frames: int = 1) -> torch.Tensor:
+    """_match_kernel over sharded stores: the sharded readout over every
+    shard's full capacity (validity masks exclude free slots) and the usage
+    added shard by shard. A store with nothing in it takes no part."""
+    stores = ([long] if use_long else []) + [temp] + ([perm] if use_perm
+                                                     else [])
+    ti = 1 if use_long else 0
+    want = [False] * len(stores)
+    if use_long and count_long_usage:
+        want[0] = True
+    if count_usage:
+        want[ti] = True
+    live = [i for i, s in enumerate(stores) if s.size > 0]
+    if not live:
+        return torch.zeros((len(group_ids), qk.shape[0],
+                            temp.shards[0].value.shape[2]),
+                           dtype=torch.float32, device=qk.device)
+    segments = [[(s.key, s.shrinkage, s.value, s.val_valid)
+                 for s in stores[i].shards] for i in live]
+    out, usages = sharded_topk_readout_multi(
+        segments, qk, qe, group_ids, top_k, want_usage=[want[i] for i in live])
+    for i, u in zip(live, usages):
+        if u is not None:
+            SS.update_usage(stores[i], u, frames=usage_frames)
+    return out
+
+
+def _consolidate_kernel(temp, long, *, num_prototypes: int,
+                        min_work_elements: int, group_ids: Tuple[int, ...],
+                        S=ST):
     """Working -> long-term consolidation, in place (reference
     compress_features + consolidation, memory_manager.py:316-390):
       1. candidates = slots [0, size - min_work_elements)
@@ -89,9 +134,12 @@ def _consolidate_kernel(temp: StoreBuffers, long: StoreBuffers, *,
       3. potentiation: prototype values = candidate values attended onto the
          prototype keys (dense softmax per object group)
       4. prototypes appended to long-term; the candidate range is removed
-    Plain PyTorch, as the JAX package's is plain jnp."""
+    Plain PyTorch, as the JAX package's is plain jnp. S: the stores' module
+    (memory/store.py, or memory/sharded_store.py for sharded stores, whose
+    candidates are matched shard by shard: the similarities and the softmax
+    are gathered on the first device, the value products summed there)."""
     cand_end = temp.size - min_work_elements
-    u = ST.usage(temp)[:temp.size].clone()
+    u = S.usage(temp)[:temp.size].clone()
     u[cand_end:] = -torch.inf
     if u.numel() < num_prototypes:
         u = torch.nn.functional.pad(u, (0, num_prototypes - u.numel()),
@@ -102,33 +150,55 @@ def _consolidate_kernel(temp: StoreBuffers, long: StoreBuffers, *,
     proto_idx = order.indices[:num_prototypes]
     proto_ok = top_vals > -torch.inf
 
-    proto_key = temp.key[proto_idx]
-    proto_sel = temp.selection[proto_idx]
-    n = max(cand_end, 0)
-    sim = get_similarity(temp.key[:n], temp.shrinkage[:n], proto_key,
-                         proto_sel)                           # [P, n]
-    g_valid = temp.val_valid[:, :n]
+    proto_key = S.take(temp, 'key', proto_idx)
+    proto_sel = S.take(temp, 'selection', proto_idx)
+    dev = proto_key.device
+    pieces = S.prefix_pieces(temp, max(cand_end, 0))
+    sim = torch.cat([get_similarity(k, s, proto_key.to(k.device),
+                                    proto_sel.to(k.device)).to(dev)
+                     for k, s, _, _ in pieces], dim=1)        # [P, n]
+    g_valid = torch.cat([e.to(dev) for _, _, _, e in pieces], dim=1)
     aff = torch.stack([masked_softmax(sim, valid=g_valid[g])
                        for g in range(g_valid.shape[0])])     # [G, P, n]
-    proto_value = torch.stack([
-        aff[g] @ temp.value[o, :n].float()
-        for o, g in enumerate(group_ids)])                    # [O, P, Cv]
-    proto_shrinkage = aff[0] @ temp.shrinkage[:n]             # [P]
-    proto_group_valid = temp.val_valid[:, proto_idx] & proto_ok[None, :]
+    proto_value = proto_shrinkage = 0
+    at = 0
+    for k, s, v, _ in pieces:
+        a = aff[:, :, at:at + k.shape[0]].to(k.device)
+        at += k.shape[0]
+        proto_value = proto_value + torch.stack([
+            a[g] @ v[o].float()
+            for o, g in enumerate(group_ids)]).to(dev)        # [O, P, Cv]
+        proto_shrinkage = proto_shrinkage + (a[0] @ s).to(dev)  # [P]
+    proto_group_valid = S.take(temp, 'val_valid', proto_idx) \
+        & proto_ok[None, :]
 
-    ST.append(long, proto_key, proto_shrinkage, None, proto_value,
-              proto_group_valid)
-    ST.remove_range(temp, 0, cand_end)
+    S.append(long, proto_key, proto_shrinkage, None, proto_value,
+             proto_group_valid)
+    S.remove_range(temp, 0, cand_end)
 
 
 class MemoryManager:
     """Host-side orchestrator with the reference MemoryManager's API. Runs
     on CUDA unless `device` says otherwise (config.resolve_device)."""
 
-    def __init__(self, config: dict, device=None):
-        check_supported(config)
+    def __init__(self, config: dict, device=None, shard_devices=None):
+        """shard_devices: with memory_shards = D > 1, the D devices of the
+        shards (repeats allowed: several shards on one card); by default the
+        first D devices of `device`'s kind (parallel/mesh.py), raising when
+        fewer are visible."""
         self.config = config
         self.device = resolve_device(device)
+        self.memory_shards = int(config.get('memory_shards', 0) or 0)
+        self.shard_devices = None
+        if self.memory_shards > 1:
+            self.shard_devices = memory_devices(
+                self.memory_shards, self.device) if shard_devices is None \
+                else [torch.device(d) for d in shard_devices]
+            if len(self.shard_devices) != self.memory_shards:
+                raise ValueError(f'{len(self.shard_devices)} shard devices '
+                                 f'for memory_shards={self.memory_shards}')
+        # the stores' module: plain or sharded stores
+        self.S = SS if self.sharded else ST
         self.hidden_dim = config['hidden_dim']
         self.top_k = config['top_k']
 
@@ -173,7 +243,6 @@ class MemoryManager:
 
     # -- config ------------------------------------------------------------
     def update_config(self, config: dict):
-        check_supported(config)
         self.reset_config = True
         self.hidden_dim = config['hidden_dim']
         self.top_k = config['top_k']
@@ -192,12 +261,23 @@ class MemoryManager:
             if self.long is not None and self.max_long_elements > old_max_long:
                 need = self.max_long_elements + self.num_prototypes
                 if self.long.capacity < need:
-                    self.long = ST.grow(self.long, need,
-                                        self.long.num_objects,
-                                        self.long.num_groups)
+                    self.long = self.S.grow(
+                        self.long, self._round_shards(need),
+                        self.long.num_objects, self.long.num_groups)
                 self.revive_from_archive()
 
     # -- helpers -----------------------------------------------------------
+    @property
+    def sharded(self) -> bool:
+        return self.shard_devices is not None
+
+    def _round_shards(self, cap: int) -> int:
+        """A capacity rounded up to a multiple of the shard count."""
+        if not self.sharded:
+            return cap
+        d = self.memory_shards
+        return -(-cap // d) * d
+
     @property
     def num_groups(self) -> int:
         return len(self.obj_groups)
@@ -228,26 +308,27 @@ class MemoryManager:
 
     def _temp_capacity(self) -> int:
         if self.enable_long_term:
-            return self.max_work_elements + self.HW
+            return self._round_shards(self.max_work_elements + self.HW)
         # without long-term memory the working store is unbounded: grow by
         # doubling from 32 frames
         need = max(self.temp_size + self.HW, 32 * self.HW)
         cap = 32 * self.HW
         while cap < need:
             cap *= 2
-        return cap
+        return self._round_shards(cap)
 
     def _perm_capacity(self) -> int:
         need = max(self.perm_size + self.HW, self.perm_bucket_frames * self.HW)
         cap = self.perm_bucket_frames * self.HW
         while cap < need:
             cap *= 2
-        return cap
+        return self._round_shards(cap)
 
-    def _new_store(self, capacity: int) -> StoreBuffers:
-        return ST.empty_store(capacity, max(self.num_objects, 1),
-                              max(self.num_groups, 1), self.CK, self.CV,
-                              self.device, value_dtype=self.value_dtype)
+    def _new_store(self, capacity: int):
+        where = self.shard_devices if self.sharded else self.device
+        return self.S.empty_store(capacity, max(self.num_objects, 1),
+                                  max(self.num_groups, 1), self.CK, self.CV,
+                                  where, value_dtype=self.value_dtype)
 
     def _ensure_stores(self):
         o, g = max(self.num_objects, 1), max(self.num_groups, 1)
@@ -256,13 +337,13 @@ class MemoryManager:
         if self.perm is None:
             self.perm = self._new_store(self._perm_capacity())
         if self.enable_long_term and self.long is None:
-            self.long = self._new_store(self.max_long_elements
-                                        + self.num_prototypes)
+            self.long = self._new_store(self._round_shards(
+                self.max_long_elements + self.num_prototypes))
 
-        def fit(s: StoreBuffers, cap: int) -> StoreBuffers:
+        def fit(s, cap: int):
             if s.capacity < cap or s.num_objects < o or s.num_groups < g:
-                return ST.grow(s, max(s.capacity, cap), max(s.num_objects, o),
-                               max(s.num_groups, g))
+                return self.S.grow(s, max(s.capacity, cap),
+                                   max(s.num_objects, o), max(s.num_groups, g))
             return s
 
         self.temp = fit(self.temp, self._temp_capacity())
@@ -303,9 +384,10 @@ class MemoryManager:
                     disable_usage_updates: bool = False,
                     usage_frames: int = 1) -> torch.Tensor:
         """qk/qe [P, Ck] -> readout [O, P, Cv] f32."""
-        return _match_kernel(self.temp, self.perm, self.long, qk, qe,
-                             usage_frames=usage_frames,
-                             **self.match_config(disable_usage_updates))
+        match = _match_sharded if self.sharded else _match_kernel
+        return match(self.temp, self.perm, self.long, qk, qe,
+                     usage_frames=usage_frames,
+                     **self.match_config(disable_usage_updates))
 
     def match_memory(self, query_key: torch.Tensor,
                      selection: Optional[torch.Tensor],
@@ -338,12 +420,12 @@ class MemoryManager:
         e = selection[0].flatten(1).T if selection is not None else None
         if permanent:
             pos = self.perm_size // self.HW
-            ST.append(self.perm, k, s, e, v, self._group_presence())
+            self.S.append(self.perm, k, s, e, v, self._group_presence())
             self.perm_size += self.HW
             if ti is not None:
                 self.frame_id_to_permanent_mem_idx[ti] = pos
         else:
-            ST.append(self.temp, k, s, e, v, self._group_presence())
+            self.S.append(self.temp, k, s, e, v, self._group_presence())
             self.note_temp_append()
 
     def note_temp_append(self):
@@ -354,25 +436,26 @@ class MemoryManager:
                 max_keep = self.max_long_elements - self.num_prototypes
                 if self.spill_long_term:
                     self._spill_evicted(max_keep)
-                ST.evict_by_usage(self.long, max_keep)
+                self.S.evict_by_usage(self.long, max_keep)
             self.compress_features()
 
     def _spill_evicted(self, max_keep: int):
         """Archive exactly the rows the following ST.evict_by_usage drops
         (ST.eviction_keep, the rule it applies), with their usage as revival
         priority, in one device-to-host copy (JAX manager.py:603-623)."""
-        long = self.long
-        keep = ST.eviction_keep(long, max_keep)
+        long, S = self.long, self.S
+        keep = S.eviction_keep(long, max_keep)
         if keep is None:
             return
-        n, drop = long.size, ~keep
-        o, g, ck, cv = (long.num_objects, long.num_groups, long.key.shape[1],
-                        long.value.shape[2])
+        n, drop = long.size, torch.nonzero(~keep).flatten()
+        o, g = long.num_objects, long.num_groups
+        ck, cv = self.CK, self.CV
         rows = torch.cat([
-            long.key[:n][drop], long.shrinkage[:n][drop, None],
-            ST.usage(long)[:n][drop, None],
-            long.val_valid[:, :n][:, drop].T.float(),
-            long.value[:, :n][:, drop].float().transpose(0, 1).flatten(1),
+            S.take(long, 'key', drop),
+            S.take(long, 'shrinkage', drop)[:, None],
+            S.usage(long)[:n][drop, None],
+            S.take(long, 'val_valid', drop).T.float(),
+            S.take(long, 'value', drop).float().transpose(0, 1).flatten(1),
         ], dim=1).cpu().numpy()
         key, shrinkage, use, valid, value = np.split(
             rows, np.cumsum([ck, 1, 1, g]), axis=1)
@@ -412,7 +495,7 @@ class MemoryManager:
         v[:value.shape[0]] = value
         e = val_valid.new_zeros((self.long.num_groups, m))
         e[:val_valid.shape[0]] = val_valid
-        ST.append(self.long, key, shrinkage, None, v, e)
+        self.S.append(self.long, key, shrinkage, None, v, e)
         return m
 
     def compress_features(self):
@@ -420,7 +503,7 @@ class MemoryManager:
         _consolidate_kernel(self.temp, self.long,
                             num_prototypes=self.num_prototypes,
                             min_work_elements=self.min_work_elements,
-                            group_ids=self.group_ids)
+                            group_ids=self.group_ids, S=self.S)
 
     def update_permanent_memory(self, frame_idx: int, key, shrinkage, value,
                                 selection=None):
@@ -429,12 +512,12 @@ class MemoryManager:
         s = shrinkage.reshape(-1)
         v = value[0].flatten(2).transpose(1, 2)
         e = selection[0].flatten(1).T if selection is not None else None
-        ST.replace_at(self.perm, saved_pos * self.HW, k, s, e, v)
+        self.S.replace_at(self.perm, saved_pos * self.HW, k, s, e, v)
 
     def remove_from_permanent_memory(self, frame_idx: int):
         saved_pos = self.frame_id_to_permanent_mem_idx[frame_idx]
         start = saved_pos * self.HW
-        ST.remove_range(self.perm, start, start + self.HW)
+        self.S.remove_range(self.perm, start, start + self.HW)
         self.perm_size -= self.HW
         del self.frame_id_to_permanent_mem_idx[frame_idx]
         # surviving frames shift down one slot
@@ -471,7 +554,7 @@ class MemoryManager:
     def copy_perm_mem_only(self) -> 'MemoryManager':
         """Fresh manager sharing the permanent store (full re-propagation,
         reference memory_manager.py:392-425)."""
-        new = MemoryManager(self.config, self.device)
+        new = MemoryManager(self.config, self.device, self.shard_devices)
         if self.perm is None or self.perm_size == 0:
             return new
         new.perm = self.perm
@@ -487,6 +570,7 @@ class MemoryManager:
             new.max_work_elements = self.max_work_elements
         new.reset_config = False
         new._ensure_stores()
-        sample = self.perm.key[:self.HW].T.reshape(1, self.CK, self.H, self.W)
+        sample = torch.zeros((1, self.CK, self.H, self.W),
+                             device=self.device)
         new.create_hidden_state(len(self.all_objects), sample)
         return new

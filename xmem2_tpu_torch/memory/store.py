@@ -152,6 +152,20 @@ def usage(store: StoreBuffers) -> torch.Tensor:
     return store.use_count / store.life_count
 
 
+def take(store: StoreBuffers, name: str, idx: torch.Tensor) -> torch.Tensor:
+    """Field `name` at the slots idx (memory/sharded_store.py has the same
+    function over shards)."""
+    t = getattr(store, name)
+    return t[:, idx] if name in ('value', 'val_valid') else t[idx]
+
+
+def prefix_pieces(store: StoreBuffers, n: int):
+    """(key, shrinkage, values, validity) views of the slots [0, n), as a
+    list of one (a sharded store gives one per shard)."""
+    return [(store.key[:n], store.shrinkage[:n], store.value[:, :n],
+             store.val_valid[:, :n])]
+
+
 def eviction_keep(store: StoreBuffers,
                   max_size: int) -> Optional[torch.Tensor]:
     """Which occupied slots evict_by_usage(store, max_size) keeps (bool

@@ -22,6 +22,32 @@ def batch_norm(x: torch.Tensor, weight, bias, running_mean, running_var,
     return (x.float() * scale[:, None, None] + shift[:, None, None]).to(dt)
 
 
+def batch_norm_train(x: torch.Tensor, weight, bias, eps: float = 1e-5,
+                     group=None):
+    """Training batch norm over NCHW with batch statistics over (N, H, W) in
+    float32 (xmem2_tpu/nn/functional.py:76-96). With a process group (e.g.
+    torch.distributed.group.WORLD) the statistics are those of the group's
+    whole batch (SyncBN): one all_reduce of the stacked [mean, mean of
+    squares], summed and divided by the group's size (the JAX package's
+    pmean; gloo has no AVG). torch.distributed.nn.functional.all_reduce is
+    differentiable, so the backward runs through autograd. Returns (out in
+    x's dtype, mean, var). The trainers keep batch norm frozen, as the
+    reference does, and do not call it."""
+    x32 = x.float()
+    mean = x32.mean(dim=(0, 2, 3))
+    mean_sq = (x32 * x32).mean(dim=(0, 2, 3))
+    if group is not None:
+        from torch.distributed.nn.functional import all_reduce
+        stats = all_reduce(torch.stack([mean, mean_sq]), group=group) \
+            / torch.distributed.get_world_size(group)
+        mean, mean_sq = stats[0], stats[1]
+    var = mean_sq - mean * mean
+    inv = torch.rsqrt(var + eps)
+    out = (x32 - mean[:, None, None]) * (inv * weight.float())[:, None, None] \
+        + bias.float()[:, None, None]
+    return out.to(x.dtype), mean, var
+
+
 def max_pool(x: torch.Tensor, window: int = 3, stride: int = 2,
              padding: int = 1) -> torch.Tensor:
     """torch nn.MaxPool2d semantics over the two trailing dims."""

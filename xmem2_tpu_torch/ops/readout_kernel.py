@@ -168,9 +168,10 @@ def _tie_count_dense(tau, sims, valids):
     oracle in the tests."""
     cnt = torch.zeros(tau.shape, dtype=torch.int64, device=tau.device)
     for sim, valid in zip(sims, valids):
+        t = tau.to(sim.device)
         for gi in range(tau.shape[0]):
-            eq = (sim == tau[gi][:, None]) & valid[gi][None, :]
-            cnt[gi] += torch.sum(eq, dim=-1)
+            eq = (sim == t[gi][:, None]) & valid[gi][None, :]
+            cnt[gi] += torch.sum(eq, dim=-1).to(cnt.device)
     return cnt
 
 
@@ -221,18 +222,25 @@ def _topk_stats_fused(sims: Sequence[torch.Tensor],
     alike. For k > BN/2 the JAX package's merge rounds stop shrinking and it
     takes its sort path; so does this one. `candidates` is K2's wrapper;
     chip_smoke.py passes its plain version to hold the kernel's stats
-    against it on the card."""
+    against it on the card.
+
+    The segments may lie on different devices (the shards of a sharded
+    bank, parallel/sharded_readout.py): each segment's lists are computed on
+    its own device and copied to the first segment's, where the merge and the
+    stats are computed."""
     total_n = sum(_round_up(s.shape[-1], BN) for s in sims)
     k = min(top_k, total_n)
     if k > BN // 2:
         return _topk_stats(sims, valids, top_k)
 
+    dev = sims[0].device
     per_seg = [candidates(sim, valid, k) for sim, valid in zip(sims, valids)]
     g, p = per_seg[0][1].shape
-    cat = torch.cat([v for v, _ in per_seg], dim=-1)              # [G, P, S*k]
+    cat = torch.cat([v.to(dev) for v, _ in per_seg], dim=-1)      # [G, P, S*k]
     vals = cat if len(per_seg) == 1 else candidates(cat, None, k)[0]
     cnt = _tie_count_closed(vals[..., -1], cat.view(g, p, len(per_seg), k),
-                            torch.stack([c for _, c in per_seg], dim=-1))
+                            torch.stack([c.to(dev) for _, c in per_seg],
+                                        dim=-1))
     return _stats_from_vals(vals, cnt)
 
 
@@ -253,7 +261,7 @@ def _topk_stats(sims: Sequence[torch.Tensor], valids: Sequence[torch.Tensor],
             simg = torch.nn.functional.pad(simg, (0, _round_up(n, BN) - n),
                                            value=NEG_INF)
             cands.append(top_k_values(simg, min(k, simg.shape[-1])))
-        merged = torch.cat(cands, dim=-1)
+        merged = torch.cat([c.to(sims[0].device) for c in cands], dim=-1)
         vals_g.append(torch.topk(merged, k, dim=-1).values)
     vals = torch.stack(vals_g)
     return _stats_from_vals(vals, _tie_count_dense(vals[..., -1], sims,

@@ -33,6 +33,7 @@ import torch
 
 from xmem2_tpu_torch.config import resolve_device
 from xmem2_tpu_torch.train.configuration import Configuration
+from xmem2_tpu_torch.utils.profiling import profiler
 
 PROFILED_STEPS = 3
 
@@ -88,10 +89,8 @@ class StageStats:
             self.entry['fresh_loader_steps'].append(step)
         if step == self.steps // 2 and self.steps >= 2 * PROFILED_STEPS \
                 and self.device.type == 'cuda':
-            from torch.profiler import ProfilerActivity, profile
             torch.cuda.synchronize()
-            self.profiler = profile(activities=[ProfilerActivity.CPU,
-                                                ProfilerActivity.CUDA])
+            self.profiler = profiler(self.device)
             self.profiler.__enter__()
             self.window_t0 = time.perf_counter()
 
@@ -341,7 +340,9 @@ def main(argv=None):
 
                         if stats is not None:
                             stats.before_step(total_iter, fresh)
-                        losses = trainer.do_pass(data, total_iter)
+                        losses = trainer.do_pass(
+                            data, total_iter,
+                            record=config['stats'] is not None)
                         if stats is not None:
                             stats.after_step(total_iter, losses)
                         fresh = False

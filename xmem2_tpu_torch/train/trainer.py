@@ -19,6 +19,11 @@ XMemTrainer :20, do_pass :56, save/load :160-214):
     ROADMAP.md Queue 3);
   * under torch.distributed (torchrun) the network is wrapped in DDP, NCCL
     on the card, gloo on the CPU; each rank takes its share of the batch.
+    On a step whose losses are logged or recorded they are averaged over
+    the ranks first, so they are the whole batch's, as the JAX step's are
+    (xmem2_tpu/train/trainer.py:196-199): every rank has an equal share,
+    the bootstrapped cross-entropy is a mean of per-item means and the dice
+    loss a mean over (item, object) pairs.
 """
 
 import os
@@ -193,20 +198,38 @@ class XMemTrainer:
             events[name] = torch.cuda.Event(enable_timing=True)
             events[name].record()
 
-    def do_pass(self, data: Dict[str, np.ndarray], it: int = 0
-                ) -> Dict[str, torch.Tensor]:
+    def _global_losses(self, losses: Dict[str, torch.Tensor]
+                       ) -> Dict[str, torch.Tensor]:
+        """The losses averaged over the ranks: one all_reduce(SUM) of them
+        stacked, divided by the world size (gloo has no AVG)."""
+        names = sorted(losses)
+        stacked = torch.stack([losses[k].float().to(self.device)
+                               for k in names])
+        torch.distributed.all_reduce(stacked)
+        stacked /= torch.distributed.get_world_size()
+        return dict(zip(names, stacked))
+
+    def do_pass(self, data: Dict[str, np.ndarray], it: int = 0,
+                record: bool = False) -> Dict[str, torch.Tensor]:
         """One step on a batch of the datasets' channels-last arrays: 'rgb'
         [B, T, H, W, 3], 'first_frame_gt' [B, 1, O, H, W], 'selector'
-        [B, O], 'cls_gt' [B, T, H, W]. `it` seeds the step's draws and
-        drives logging and saving; the loss schedule runs on the trainer's
-        own count. Returns the losses (device tensors)."""
+        [B, O], 'cls_gt' [B, T, H, W]; pinned host tensors are copied
+        without blocking. `it` seeds the step's draws and drives logging and
+        saving; the loss schedule runs on the trainer's own count. Returns
+        the losses (detached device tensors). Under DDP, on a log step or
+        when the caller records the losses (`record`, the same on every
+        rank), they are the ranks' average; else this rank's."""
         events: Dict[str, torch.cuda.Event] = {}
         self._event(events, 'start')
         dev = self.device
-        frames = torch.from_numpy(data['rgb']).to(dev).permute(0, 1, 4, 2, 3)
-        first_frame_gt = torch.from_numpy(data['first_frame_gt']).to(dev)
-        selector = torch.from_numpy(data['selector']).to(dev)
-        cls_gt = torch.from_numpy(data['cls_gt']).to(dev).long()
+
+        def on_device(a):
+            return torch.as_tensor(a).to(dev, non_blocking=True)
+
+        frames = on_device(data['rgb']).permute(0, 1, 4, 2, 3)
+        first_frame_gt = on_device(data['first_frame_gt'])
+        selector = on_device(data['selector'])
+        cls_gt = on_device(data['cls_gt']).long()
         gen = torch.Generator().manual_seed(int(it))
         ref_idx, deep = sample_draws(gen, frames.shape[0],
                                      self.config['num_frames'],
@@ -228,9 +251,14 @@ class XMemTrainer:
         if self.record_events:
             self.step_events.append(events)
 
-        if self.logger is not None and it % self.log_text_interval == 0:
+        losses = {k: v.detach() for k, v in losses.items()}
+        log_step = it % self.log_text_interval == 0
+        if (log_step or record) and isinstance(
+                self.net, nn.parallel.DistributedDataParallel):
+            losses = self._global_losses(losses)
+        if self.logger is not None and log_step:
             for k, v in losses.items():
-                self.logger.log_scalar(f'train/{k}', float(v.detach()), it)
+                self.logger.log_scalar(f'train/{k}', float(v), it)
         if self.save_path is not None:
             if it % self.save_network_interval == 0 and it != 0:
                 self.save_network(it)
