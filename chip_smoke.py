@@ -18,9 +18,16 @@ fails the run when it fails:
               the overflow cases (a segment smaller than k, top_k = 300, a
               key repeated 3,000 times); each timed with CUDA events beside
               its plain version, a PyTorch yardstick where one call computes
-              the same function, and its bound on this card; then `match
-              ms`, one whole fused_topk_readout_multi call (three segments,
-              usage on);
+              the same function, and its bound on this card; the same at
+              two many-object shapes (P = 1620, the three segments, 12
+              objects in 10 groups and 70 objects in 3 groups: past the 8
+              groups and 64 objects a CTA handles), with the whole readout
+              call against the plain orchestration and the sharded readout
+              (2 shards) against the unsharded one; 136 objects each in
+              a group of its own (two K1 launches: past one launch's chunk
+              table); then `match ms`, one
+              whole fused_topk_readout_multi call (three segments, usage
+              on);
   4. main:    `run_on_video` of the port on the card, at the published XMem
               widths with seeded synthetic weights, on a synthetic 854x480
               video of 120 frames with two objects annotated on frames 0 and
@@ -53,11 +60,19 @@ fails the run when it fails:
               bf16), K1, K2 and usage launched, K2 launches growing with D,
               frames/s and peak memory; over real cards when more than one
               is visible;
- 11. check:   the port on the card against the port on the CPU (plain
+ 11. many:    run_on_video on synthetic 854x480 video with many objects,
+              each annotated frame bringing new ones (a new object group):
+              12 objects in 10 groups over 60 frames, default and --exact,
+              and 70 objects in 3 groups over 20 frames, default. Every
+              mask written, nothing non-finite, the group count, K1, K2 and
+              usage launched; frames/s, peak memory and launches per
+              readout call;
+ 12. check:   the port on the card against the port on the CPU (plain
               versions of every kernel) on a small f32 video: masks equal,
               also with augmentation; the same candidates chosen; spill
-              archives of the same size;
- 12. train:   the stage-2 loader timed alone (worker processes, 1 and 8,
+              archives of the same size; and a 24-frame 96x160 video with
+              12 objects in 10 groups: masks equal on >= 99.99% of pixels;
+ 13. train:   the stage-2 loader timed alone (worker processes, 1 and 8,
               beside as many threads reading the same samples; two runs of
               one seed byte-equal), then
               python -m xmem2_tpu_torch.train on synthetic 854x480 data in
@@ -69,13 +84,13 @@ fails the run when it fails:
               events over the steady steps, the data wait of every step,
               peak memory, a profiler window of 3 steps by kernel group and
               the device's busy share;
- 13. train-check: one float32 training step (TF32 off) on the card and on
+ 14. train-check: one float32 training step (TF32 off) on the card and on
               the CPU, same weights and batch: loss within 1e-5 relative,
               every gradient leaf within 1e-3 of its largest entry;
- 14. syncbn:  batch_norm_train over a one-process NCCL group on the card
+ 15. syncbn:  batch_norm_train over a one-process NCCL group on the card
               against the CPU without a group, forward and backward within
               1e-5 of each output's scale;
- 15. interactive: a user's session through SessionController (bf16, the
+ 16. interactive: a user's session through SessionController (bf16, the
               demo's default) on a workspace that python -m
               xmem2_tpu_torch.import_existing and ResourceManager build from
               60 synthetic 854x480 frames with two objects, with seeded S2M
@@ -86,7 +101,7 @@ fails the run when it fails:
               0), a live config change and the memory gauges; ms per
               scribble and click, L-BFGS evaluations a click, frames/s,
               launch counts, peak memory and a profile of one click;
- 16. interactive-check: the same session in float32 on a 24-frame 96x160
+ 17. interactive-check: the same session in float32 on a 24-frame 96x160
               workspace on the card and on the CPU: S2M probabilities within
               1e-3, one f-BRS forward within 1e-4 of its largest logit,
               f-BRS masks after L-BFGS equal on >= 99% of pixels,
@@ -96,8 +111,9 @@ fails the run when it fails:
               default widths; at most 4 L-BFGS evaluations a click): masks
               within 1% of pixels, the same L-BFGS evaluation counts.
 
-The second-to-last line of output is the kernels JSON line; the last line is
-{"ok": true, "device": {...}}.
+The second-to-last line of output is the kernels JSON line (each kernel at
+the main path's shape, then at the many-object shapes, named with them);
+the last line is {"ok": true, "device": {...}}.
 
     python3 chip_smoke.py --match-from DIR
 
@@ -180,7 +196,8 @@ def _segments(dev, p, seg_ns=(10128, 17820, 6480), ck=64, cv=512, o=2, g=2,
     """[long | temp | perm] segments at the main path's widths. perm repeats
     the first slots of temp bit for bit (all of them when it is the larger),
     so the k-th value ties across segments (the duplicated-memory
-    regime)."""
+    regime). Group gi > 0 lacks the oldest gi / (3 (g - 1)) of each
+    segment's slots."""
     import torch
     gen = torch.Generator(device=dev).manual_seed(seed)
 
@@ -195,7 +212,8 @@ def _segments(dev, p, seg_ns=(10128, 17820, 6480), ck=64, cv=512, o=2, g=2,
         ms = randn(n) ** 2 + 1
         values = randn(o, n, cv)
         valid = torch.ones((g, n), dtype=torch.bool, device=dev)
-        valid[1, :n // 3] = False          # a later group lacks old slots
+        for gi in range(1, g):             # later groups lack old slots
+            valid[gi, :n * gi // (3 * (g - 1))] = False
         segs.append([mk, ms, values, valid])
     long_, temp, perm = segs
     temp[3][:, -37:] = False               # invalid ragged tail
@@ -329,13 +347,113 @@ def match_phase(ps=(1620, 9 * 1620)):
     return out
 
 
-# (label, query rows, [long, temp, perm] slots, the segment timed): the
-# default config's store capacities at the per-frame and the chunk shape, and
-# the permanent segment of augmented preloading (two annotated frames, each
-# with 11 augmentations: 24 frames of 1,620 slots)
-KERNEL_CASES = (('P=1620', 1620, (10128, 17820, 6480), 1),
-                ('P=14580', 9 * 1620, (10128, 17820, 6480), 1),
-                ('P=1620 augmented', 1620, (10128, 17820, 38880), 2))
+def many_group_ids(sizes) -> tuple:
+    """Group ids of objects that annotated frames bring in blocks of these
+    sizes, each block a new group."""
+    return tuple(gi for gi, n in enumerate(sizes) for _ in range(n))
+
+
+# 12 objects in 10 groups (objects 1-3 on the first annotated frame, one
+# more on each of nine later ones) and 70 objects in 3 groups: past the 8
+# groups and the 64 objects one CTA of a readout kernel handles
+MANY_12_10 = (3,) + (1,) * 9
+MANY_70_3 = (30, 25, 15)
+
+# (label, query rows, [long, temp, perm] slots, the segment timed, group id
+# of each object): the default config's store capacities at the per-frame
+# and the chunk shape, the permanent segment of augmented preloading (two
+# annotated frames, each with 11 augmentations: 24 frames of 1,620 slots),
+# and the per-frame shape with many objects
+KERNEL_CASES = (
+    ('P=1620', 1620, (10128, 17820, 6480), 1, (0, 1)),
+    ('P=14580', 9 * 1620, (10128, 17820, 6480), 1, (0, 1)),
+    ('P=1620 augmented', 1620, (10128, 17820, 38880), 2, (0, 1)),
+    ('P=1620 O=12 G=10', 1620, (10128, 17820, 6480), 1,
+     many_group_ids(MANY_12_10)),
+    ('P=1620 O=70 G=3', 1620, (10128, 17820, 6480), 1,
+     many_group_ids(MANY_70_3)))
+
+
+def _many_calls(RK, qk, qe, segs, gids, label):
+    """At a many-object shape: the whole readout call (three segments, usage
+    on) against the same orchestration over the plain versions, and the
+    sharded readout (the segments in 2 shards on this card) against the
+    unsharded one, both f32 values within KERNEL_TOL; the whole call timed
+    in bf16 and f32 (match ms), with K1, K2 and usage launches a call."""
+    import torch
+    from xmem2_tpu_torch.ops.similarity import get_similarity_padded
+    from xmem2_tpu_torch.parallel import sharded_readout as SR
+
+    k, p = 30, qk.shape[0]
+    out, usages = RK.fused_topk_readout_multi(segs, qk, qe, gids, k)
+    sims = [get_similarity_padded(mk, ms, qk, qe, p, mk.shape[0])
+            for mk, ms, _, _ in segs]
+    valids = [s[3] for s in segs]
+    stats = RK._topk_stats_fused(
+        sims, valids, k, candidates=RK.block_topk_candidates_plain)
+    ref = sum(RK.topk_readout_plain(sim, v, va, *stats, gids)
+              for sim, (_, _, v, va) in zip(sims, segs))
+    err = (out - ref).abs().max().item()
+    use_err = max(((u - RK.topk_usage_plain(sim, va, *stats)).abs()
+                   / RK.topk_usage_plain(sim, va, *stats).abs().clamp_min(
+                       1e-3)).max().item()
+                  for u, sim, va in zip(usages, sims, valids))
+    del ref, sims
+    sharded = [list(zip(*SR.shard_memory_bank(*seg, [qk.device] * 2)))
+               for seg in segs]
+    out_sh, _ = SR.sharded_topk_readout_multi(sharded, qk, qe, gids, k)
+    err_sh = (out_sh - out).abs().max().item()
+    del sharded, out_sh
+    RK.reset_launch_counts()
+    RK.fused_topk_readout_multi(segs, qk, qe, gids, k)
+    per_call = dict(RK.LAUNCHES)
+    times = {}
+    for vdt in (torch.bfloat16, torch.float32):
+        sv = [(mk, ms, v.to(vdt), va) for mk, ms, v, va in segs]
+        times[str(vdt)[6:]] = _time_ms(
+            lambda: RK.fused_topk_readout_multi(sv, qk, qe, gids, k), 5)
+        del sv
+    log(f'[kernels] {label}: whole readout call vs the plain orchestration '
+        f'max abs err {err:.3e}, usage max rel err {use_err:.3e}; sharded '
+        f'(2 shards on this card) vs unsharded {err_sh:.3e} (tol '
+        f'{KERNEL_TOL["float32"]}); match ms bf16 {times["bfloat16"]:.4f}, '
+        f'f32 {times["float32"]:.4f}; launches a call {per_call}')
+    if max(err, err_sh) > KERNEL_TOL['float32'] or use_err > 1e-4:
+        raise AssertionError(f'{label}: the whole readout call disagrees')
+
+
+def _wide_case(RK):
+    """Past one K1 launch's chunk table: 136 objects, each in a group of its
+    own (17 chunks of 8 groups: two K1 launches, K2 in 17 group chunks of
+    8), P = 1620, N = 2000, Cv = 64. K2 bit-equal, K1 within KERNEL_TOL of
+    the plain versions."""
+    import torch
+    from xmem2_tpu_torch.ops.similarity import get_similarity_padded
+
+    p, n, o, k = 1620, 2000, 136, 30
+    gen = torch.Generator(device='cuda').manual_seed(7)
+    mk, qk = (torch.randn(m, 64, generator=gen, device='cuda')
+              for m in (n, p))
+    ms = torch.randn(n, generator=gen, device='cuda') ** 2 + 1
+    values = torch.randn(o, n, 64, generator=gen, device='cuda')
+    valid = torch.rand(o, n, generator=gen, device='cuda') > 0.2
+    sim = get_similarity_padded(mk, ms, qk, None, p, n)
+    got = RK.block_topk_candidates(sim, valid, k)
+    want = RK.block_topk_candidates_plain(sim, valid, k)
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError('K2 at 136 groups differs from plain')
+    stats = RK._topk_stats_fused([sim], [valid], k)
+    gids = tuple(range(o))
+    RK.reset_launch_counts()
+    out = RK.topk_readout(sim, values, valid, *stats, gids)
+    launches = RK.LAUNCHES['topk_readout']
+    err = (out - RK.topk_readout_plain(sim, values, valid, *stats, gids)
+           ).abs().max().item()
+    log(f'[kernels] 136 objects in 136 groups (P={p}, N={n}, Cv=64): K2 '
+        f'bit-equal to plain; K1 in {launches} launches, max abs err '
+        f'{err:.3e} (tol {KERNEL_TOL["float32"]})')
+    if launches != 2 or err > KERNEL_TOL['float32']:
+        raise AssertionError('K1 past one chunk table disagrees')
 
 
 def kernel_phase():
@@ -344,10 +462,10 @@ def kernel_phase():
     from xmem2_tpu_torch.ops.similarity import get_similarity_padded
 
     dev = torch.device('cuda')
-    k, gids = 30, (0, 1)
+    k = 30
     rows = {}
-    for label, p, seg_ns, timed in KERNEL_CASES:
-        qk, qe, segs = _segments(dev, p, seg_ns)
+    for label, p, seg_ns, timed, gids in KERNEL_CASES:
+        qk, qe, segs = _segments(dev, p, seg_ns, o=len(gids), g=max(gids) + 1)
         sims = [get_similarity_padded(mk, ms, qk, qe, p, mk.shape[0])
                 for mk, ms, _, _ in segs]
         valids = [s[3] for s in segs]
@@ -370,7 +488,9 @@ def kernel_phase():
             want = RK.topk_usage_plain(sim, valid, tau, rmax, invz)
             rel = ((got - want).abs() / want.abs().clamp_min(1e-3)).max()
             err['topk_usage'] = max(err['topk_usage'], rel.item())
-        if seg_ns[2] < seg_ns[1]:     # the overflow cases need no second run
+        # the overflow cases need no second run of the two-object shape, nor
+        # a third of the 70 objects' values
+        if seg_ns[2] < seg_ns[1] and len(gids) <= 12:
             _overflow_cases(RK, qk, qe, sims, segs, gids, err)
         log(f'[kernels] {label}: max abs err readout f32 '
             f'{err["topk_readout_float32"]:.3e} (tol {KERNEL_TOL["float32"]}), '
@@ -433,8 +553,11 @@ def kernel_phase():
                 log(f'[kernels] {label} N={n} {name}: {r["ms"]:.4f} ms, plain '
                     f'{r["plain_ms"]:.4f} ms, library {r["library_ms"]}, '
                     f'bound {r["bound"][0]:.4f} ms ({r["bound"][1]})')
+        if len(gids) > 2:
+            _many_calls(RK, qk, qe, segs, gids, label)
         del sims, segs, stats
         torch.cuda.empty_cache()
+    _wide_case(RK)
     return rows
 
 
@@ -1069,13 +1192,133 @@ def shard_phase(work: Path, card: str):
     return {dtype: counts[dtype, '4 shards'] for dtype in ('bf16', 'f32')}
 
 
+def synth_many_video(root: Path, h: int, w: int, n: int, blocks):
+    """Textured frames with many moving ellipses on a grid. blocks: (frame,
+    count) pairs: `count` new objects first appear, and are annotated, on
+    `frame`; every annotated frame's palette mask carries every object
+    present (exhaustive), so each block forms a new object group."""
+    import numpy as np
+    from PIL import Image
+
+    rng = np.random.default_rng(3)
+    imgs, anns = root / 'JPEGImages', root / 'Annotations'
+    imgs.mkdir(parents=True)
+    anns.mkdir(parents=True)
+    first = [f for f, c in blocks for _ in range(c)]
+    total = len(first)
+    cols = min(total, 10 if total > 12 else 4)
+    rows = -(-total // cols)
+    yy, xx = np.mgrid[0:h, 0:w]
+    colours = rng.integers(30, 230, (total + 1, 3)).astype(np.uint8)
+    palette = [0, 0, 0] + colours[1:].reshape(-1).tolist()
+    palette += [0] * (256 * 3 - len(palette))
+    bg = rng.integers(0, 255, (h // 16, w // 16, 3)).astype(np.uint8)
+    bg = np.asarray(Image.fromarray(bg).resize((w, h), Image.BILINEAR))
+    for t in range(n):
+        label = np.zeros((h, w), np.uint8)
+        for o in range(1, total + 1):
+            if t < first[o - 1]:
+                continue
+            r, c = divmod(o - 1, cols)
+            cy = (r + 0.5) * h / rows
+            cx = (c + 0.5) * w / cols + 0.1 * w / cols * t / n
+            label[((yy - cy) / (0.38 * h / rows)) ** 2
+                  + ((xx - cx) / (0.38 * w / cols)) ** 2 < 1] = o
+        frame = bg.copy()
+        for o in range(1, total + 1):
+            frame[label == o] = colours[o]
+        frame = np.clip(frame.astype(int) + rng.integers(-12, 12, frame.shape),
+                        0, 255).astype(np.uint8)
+        Image.fromarray(frame).save(imgs / f'frame_{t:06d}.jpg', quality=92)
+        if t in {f for f, _ in blocks}:
+            m = Image.fromarray(label, mode='P')
+            m.putpalette(palette)
+            m.save(anns / f'frame_{t:06d}.png')
+    return imgs, anns, tuple(sorted({f for f, _ in blocks}))
+
+
+def many_phase(work: Path, card: str) -> dict:
+    """run_on_video on synthetic 854x480 video with many objects: (a) 12
+    objects in 10 groups over 60 frames (objects 1-3 annotated on frame 0,
+    objects 4-12 first on frames 5, 10, ..., 45), default (bf16, chunked)
+    and --exact (f32); (b) 70 objects in 3 groups over 20 frames (30, 25
+    and 15 objects first on frames 0, 2 and 4), default mode. Every mask
+    written, nothing non-finite, the configuration's group count, K1, K2
+    and usage launched; frames/s, peak memory, launches per readout call.
+    Returns the launches of each run."""
+    import torch
+    from xmem2_tpu_torch.memory import manager as MM
+    from xmem2_tpu_torch.ops.readout_kernel import LAUNCHES, \
+        reset_launch_counts
+
+    ckpt = work / 'synth_xmem.pth'
+    exact = {'compute_dtype': 'float32', 'value_store_dtype': 'float32'}
+    videos = {
+        '12 in 10': (60, [(0, 3)] + [(5 * i, 1) for i in range(1, 10)]),
+        # annotated frames go to permanent memory; from frame 14 on (a
+        # memory frame every 10) working memory holds a frame, whose usage
+        # the readout then counts
+        '70 in 3': (20, [(0, 30), (2, 25), (4, 15)]),
+    }
+    runs = (('12 in 10', 'default', {}), ('12 in 10', 'exact', exact),
+            ('70 in 3', 'default', {}))
+    matches = []
+
+    def count(fn):
+        def counted(*a, **k):
+            matches.append(1)
+            return fn(*a, **k)
+        return counted
+
+    made = {}
+    for name, (n, blocks) in videos.items():
+        made[name] = synth_many_video(work / f'many_{name.replace(" ", "_")}',
+                                      480, 854, n, blocks)
+    counts = {}
+    for name, mode, over in runs:
+        n, blocks = videos[name]
+        imgs, anns, frames = made[name]
+        tag = f'{name} {mode}'
+        reset_launch_counts()
+        matches.clear()
+        torch.cuda.reset_peak_memory_stats()
+        with _cores() as cores, _patched(MM, 'fused_topk_readout_multi',
+                                         count):
+            seconds, written, bad = _run(
+                imgs, anns, work / f'many_{tag.replace(" ", "_")}', ckpt,
+                'cuda', over, frames=frames)
+        counts[tag] = dict(LAUNCHES)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        mm = cores[0].memory
+        per = {k: round(v / max(len(matches), 1), 3)
+               for k, v in counts[tag].items()}
+        log(f'[many] {tag}: {mm.num_objects} objects in '
+            f'{len(mm.obj_groups)} groups, {n} frames at 854x480 in '
+            f'{seconds:.3f} s = {n / seconds:.2f} frames/s, peak '
+            f'{peak:.3f} GB allocated on {card}; {len(matches)} readout '
+            f'calls, launches {counts[tag]} = {per} a call')
+        if written != n or bad:
+            raise AssertionError(f'many {tag}: {written} of {n} masks, {bad} '
+                                 f'non-finite probabilities')
+        if len(mm.obj_groups) != len(blocks) or \
+                mm.num_objects != sum(c for _, c in blocks):
+            raise AssertionError(f'many {tag}: {mm.num_objects} objects in '
+                                 f'{len(mm.obj_groups)} groups')
+        _launched(f'many {tag}', counts[tag])
+    return counts
+
+
 def small_check_phase(work: Path):
     """The port on the card against the port on the CPU (plain version of
     every kernel), f32, on a small video: masks equal up to 0.1% of pixels
     (argmax near-ties under another float32 summation order), plain and
     with augment_images_with_masks; the same annotation candidates chosen;
     with spill_long_term (a memory frame every frame, so long-term memory
-    evicts), the same number of archived rows."""
+    evicts), the same number of archived rows. Then a 96x160 video of 24
+    frames with 12 objects in 10 groups (objects 1-3 on frame 0, objects
+    4-12 first on frames 2, 4, ..., 18): masks equal on >= 99.99% of all
+    pixels, ten groups on both devices (the chunked kernels against the
+    plain versions in the loop)."""
     from xmem2_tpu_torch.inference.run_on_video import \
         select_k_next_best_annotation_candidates
 
@@ -1120,9 +1363,29 @@ def small_check_phase(work: Path):
         raise AssertionError(f'spill archives differ or are empty: '
                              f'{archived}')
 
+    imgs, anns, frames = synth_many_video(
+        work / 'video_many_small', 96, 160, 24,
+        [(0, 3)] + [(2 * i, 1) for i in range(1, 10)])
+    groups = {}
+    for dev in ('cuda', 'cpu'):
+        with _cores() as cores:
+            _, written, bad = _run(imgs, anns, work / f'small_many_{dev}',
+                                   ckpt, dev, over, frames=frames)
+        groups[dev] = len(cores[0].memory.obj_groups)
+        if written != 24 or bad:
+            raise AssertionError(f'small 12-object video on {dev}: '
+                                 f'{written} masks, {bad} non-finite')
+    share, worst = _mask_diff(work / 'small_many_cpu',
+                              work / 'small_many_cuda')
+    log(f'[check] card vs CPU, 12 objects in {groups} groups, 24 frames of '
+        f'96x160: {share:.5%} of pixels differ (limit 0.01%), worst frame '
+        f'{worst:.4%}')
+    if share > 1e-4 or groups != {'cuda': 10, 'cpu': 10}:
+        raise AssertionError('card and CPU disagree on the 12-object video')
+
 
 # ---------------------------------------------------------------------------
-# phase 10-11: training
+# phase 13-15: training
 # ---------------------------------------------------------------------------
 
 def synth_training_data(root: Path, h: int = 480, w: int = 854):
@@ -1490,7 +1753,7 @@ def syncbn_phase(card: str):
 
 
 # ---------------------------------------------------------------------------
-# phase 12-13: the interactive layer
+# phase 16-17: the interactive layer
 # ---------------------------------------------------------------------------
 
 # seeded as they are, HRNet's fusions sum their branches stage after stage
@@ -1868,6 +2131,10 @@ def fbrs_modes_check(work: Path, card: str, devices=('cuda', 'cpu')):
 
 
 def kernels_json(rows, launches):
+    """The kernels line: each kernel at the main path's shape, then at the
+    many-object shapes (named with the shape) where the many phase's runs
+    launched it. launches: per kernel-row label, the launches of the run
+    that label stands for."""
     src = 'xmem2_tpu_torch/ops/csrc/'
     meta = {
         'block_topk_candidates': (src + 'block_topk.cu',
@@ -1880,15 +2147,19 @@ def kernels_json(rows, launches):
                        'xmem2_tpu/ops/readout_kernel.py:53'),
     }
     out = []
-    for name, (source, replaces) in meta.items():
-        r = rows[(name, 'P=1620')]
-        out.append({
-            'name': name, 'route': 'cuda', 'source': source,
-            'replaces': replaces,
-            'launches': launches[name],
-            'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
-            'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
-            'bound_by': r['bound'][1], 'library_ms': r['library_ms']})
+    for label, counts in launches.items():
+        for name, (source, replaces) in meta.items():
+            if not counts.get(name):
+                continue
+            r = rows[(name, label)]
+            out.append({
+                'name': name if label == 'P=1620' else
+                f'{name} {label.split(" ", 1)[1]}',
+                'route': 'cuda', 'source': source, 'replaces': replaces,
+                'launches': counts[name],
+                'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
+                'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
+                'bound_by': r['bound'][1], 'library_ms': r['library_ms']})
     return {'kernels': out}
 
 
@@ -1904,6 +2175,7 @@ def main(argv=None) -> int:
                          'port checked out under DIR, e.g. a parent commit '
                          'unpacked there with git archive')
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device', file=sys.stderr)
@@ -1938,6 +2210,7 @@ def main(argv=None) -> int:
         eval_phase(Path(work), card)
         merge_phase(Path(work), card)
         sharded = shard_phase(Path(work), card)
+        many = many_phase(Path(work), card)
         small_check_phase(Path(work))
         train_phase(Path(work), card)
         train_check_phase(card)
@@ -1945,11 +2218,18 @@ def main(argv=None) -> int:
         interactive_phase(Path(work), card)
         interactive_check_phase(Path(work), card)
 
-    default, exact = counts.values()
-    launches = dict(default, topk_readout_float32=exact['topk_readout'],
-                    topk_readout_bfloat16=default['topk_readout'])
+    def by_dtype(default, exact=None):
+        return dict(default, topk_readout_bfloat16=default['topk_readout'],
+                    topk_readout_float32=exact['topk_readout'] if exact
+                    else 0)
+
+    launches = {'P=1620': by_dtype(*counts.values()),
+                'P=1620 O=12 G=10': by_dtype(many['12 in 10 default'],
+                                             many['12 in 10 exact']),
+                'P=1620 O=70 G=3': by_dtype(many['70 in 3 default'])}
     log(f'[shard] launches of the 60-frame runs with 4 shards on one card: '
         f'bf16 {sharded["bf16"]}, f32 {sharded["f32"]}')
+    log(f'[done] the whole script in {time.perf_counter() - t_start:.1f} s')
     log(card)
     log(json.dumps(kernels_json(rows, launches)))
     log(json.dumps({'ok': True, 'device': {

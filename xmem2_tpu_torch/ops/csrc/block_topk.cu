@@ -46,6 +46,13 @@
 //     under-full group where every valid slot counts) never occupy it.
 // What bounds it now: issuing the survivors' inserts and the bulk merges
 // (about 190 inserts a row and group in random order), not the bytes.
+//
+// Any number of groups: a warp keeps the lists of at most kMaxGroups groups
+// in registers, so in shared mode the groups come in ceil(G / 8) chunks of
+// equal width GL (readout_kernel.plan_group_width; the last chunk may be
+// narrower, its missing groups read as invalid) on the grid's second
+// dimension: a row is read once per chunk. Grouped mode has one group a
+// grid row. G <= 8 is one chunk, the launch it was before chunking.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -57,7 +64,7 @@ constexpr unsigned kFull = 0xffffffffu;
 constexpr int kChunk = 128;     // elements a warp takes per step (4 a lane)
 constexpr int kUnroll = 4;      // chunks loaded before any is processed
 constexpr int kRowsPerCta = 4;  // one warp a row
-constexpr int kMaxGroups = 8;   // group validity bits are packed in 32 bits
+constexpr int kMaxGroups = 8;   // groups a warp keeps lists of
 constexpr int kBulk = 16;       // survivors of a chunk above which it is
                                 // sorted and merged, not inserted one by one
 
@@ -70,10 +77,12 @@ struct Step {
   uint32_t vraw[kUnroll][GL];
 };
 
+// Groups g0 + g >= G (the padding of a narrower last chunk) load as
+// invalid.
 template <int GL>
 __device__ __forceinline__ void load_step(Step<GL>& t, const float* row,
                                           const uint8_t* valid, int g0,
-                                          int N, int base, int lane,
+                                          int G, int N, int base, int lane,
                                           bool vec) {
 #pragma unroll
   for (int u = 0; u < kUnroll; ++u) {
@@ -83,9 +92,10 @@ __device__ __forceinline__ void load_step(Step<GL>& t, const float* row,
       t.x[u][0] = v4.x; t.x[u][1] = v4.y; t.x[u][2] = v4.z; t.x[u][3] = v4.w;
 #pragma unroll
       for (int g = 0; g < GL; ++g)
-        t.vraw[u][g] = valid ? __ldg(reinterpret_cast<const unsigned int*>(
-                                   valid + (size_t)(g0 + g) * N + n0))
-                             : 0x01010101u;
+        t.vraw[u][g] = g0 + g >= G ? 0u
+                       : valid ? __ldg(reinterpret_cast<const unsigned int*>(
+                                     valid + (size_t)(g0 + g) * N + n0))
+                               : 0x01010101u;
     } else {
 #pragma unroll
       for (int i = 0; i < 4; ++i)
@@ -95,7 +105,7 @@ __device__ __forceinline__ void load_step(Step<GL>& t, const float* row,
         uint32_t r = 0;
 #pragma unroll
         for (int i = 0; i < 4; ++i)
-          if (n0 + i < N)
+          if (n0 + i < N && g0 + g < G)
             r |= (uint32_t)(valid ? __ldg(valid + (size_t)(g0 + g) * N + n0 + i)
                                   : 1) << (8 * i);
         t.vraw[u][g] = r;
@@ -223,10 +233,10 @@ template <int GL>
 __global__ void __launch_bounds__(kRowsPerCta * 32)
 block_topk_reg_kernel(const float* __restrict__ sim, long long sim_gstride,
                 const uint8_t* __restrict__ valid, float* __restrict__ vals,
-                int* __restrict__ kcnt, int P, int N, int k, int vec) {
+                int* __restrict__ kcnt, int P, int N, int G, int k, int vec) {
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kRowsPerCta + (threadIdx.x >> 5);
-  const int g0 = blockIdx.y;  // grouped mode: this CTA's group; shared: 0
+  const int g0 = blockIdx.y * GL;  // the CTA's first group
   if (p >= P) return;
   const float* row = sim + (size_t)g0 * sim_gstride + (size_t)p * N;
 
@@ -237,10 +247,10 @@ block_topk_reg_kernel(const float* __restrict__ sim, long long sim_gstride,
   // the next step's loads are issued before this one is processed
   constexpr int kStep = kChunk * kUnroll;
   Step<GL> cur, nxt;
-  load_step<GL>(cur, row, valid, g0, N, 0, lane, vec);
+  load_step<GL>(cur, row, valid, g0, G, N, 0, lane, vec);
   for (int base = 0; base < N; base += kStep) {
     if (base + kStep < N)
-      load_step<GL>(nxt, row, valid, g0, N, base + kStep, lane, vec);
+      load_step<GL>(nxt, row, valid, g0, G, N, base + kStep, lane, vec);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const float (&x)[4] = cur.x[u];
@@ -278,6 +288,7 @@ block_topk_reg_kernel(const float* __restrict__ sim, long long sim_gstride,
 
 #pragma unroll
   for (int g = 0; g < GL; ++g) {
+    if (g0 + g >= G) break;
     const RegList& l = st[g];
     const size_t r = (size_t)(g0 + g) * P + p;
     if (lane < k) vals[r * k + lane] = l.v;
@@ -345,13 +356,13 @@ template <int GL>
 __global__ void __launch_bounds__(kRowsPerCta * 32)
 block_topk_buf_kernel(const float* __restrict__ sim, long long sim_gstride,
                 const uint8_t* __restrict__ valid, float* __restrict__ vals,
-                int* __restrict__ kcnt, int P, int N, int k, int cap,
+                int* __restrict__ kcnt, int P, int N, int G, int k, int cap,
                 int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x * kRowsPerCta + warp;
-  const int g0 = blockIdx.y;
+  const int g0 = blockIdx.y * GL;
   if (p >= P) return;
   float* bufs = reinterpret_cast<float*>(smem) + (size_t)warp * GL * cap;
   const float* row = sim + (size_t)g0 * sim_gstride + (size_t)p * N;
@@ -362,7 +373,7 @@ block_topk_buf_kernel(const float* __restrict__ sim, long long sim_gstride,
 
   for (int base = 0; base < N; base += kChunk * kUnroll) {
     Step<GL> t;
-    load_step<GL>(t, row, valid, g0, N, base, lane, vec);
+    load_step<GL>(t, row, valid, g0, G, N, base, lane, vec);
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const float (&x)[4] = t.x[u];
@@ -404,6 +415,7 @@ block_topk_buf_kernel(const float* __restrict__ sim, long long sim_gstride,
   // is -inf and eq counts the valid -inf elements. Either way kcnt = eq.
 #pragma unroll
   for (int g = 0; g < GL; ++g) {
+    if (g0 + g >= G) break;
     const BufState s = compact(bufs + (size_t)g * cap, cap, k, st[g], lane);
     const size_t r = (size_t)(g0 + g) * P + p;
     const float* buf = bufs + (size_t)g * cap;
@@ -426,11 +438,10 @@ int launch(const float* sim, long long sim_gstride, const uint8_t* valid,
   const int vec = N % 4 == 0 && sim_gstride % 4 == 0 &&
                   reinterpret_cast<uintptr_t>(sim) % 16 == 0 &&
                   (!valid || reinterpret_cast<uintptr_t>(valid) % 4 == 0);
-  const int gy = sim_gstride != 0 ? G : 1;
-  const dim3 grid((P + kRowsPerCta - 1) / kRowsPerCta, gy);
+  const dim3 grid((P + kRowsPerCta - 1) / kRowsPerCta, (G + GL - 1) / GL);
   if (k <= 32) {
     block_topk_reg_kernel<GL><<<grid, kRowsPerCta * 32, 0, stream>>>(
-        sim, sim_gstride, valid, vals, kcnt, P, N, k, vec);
+        sim, sim_gstride, valid, vals, kcnt, P, N, G, k, vec);
     return (int)cudaGetLastError();
   }
   const int cap = pow2_at_least(k + kChunk);
@@ -441,25 +452,29 @@ int launch(const float* sim, long long sim_gstride, const uint8_t* valid,
       (int)bytes);
   if (e != cudaSuccess) return (int)e;
   block_topk_buf_kernel<GL><<<grid, kRowsPerCta * 32, bytes, stream>>>(
-      sim, sim_gstride, valid, vals, kcnt, P, N, k, cap, vec);
+      sim, sim_gstride, valid, vals, kcnt, P, N, G, k, cap, vec);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// sim_gstride == 0: shared mode, sim [P, N], valid [G, N].
+// sim_gstride == 0: shared mode, sim [P, N], valid [G, N], groups in chunks
+//                   of `width` (1..8) on the grid's second dimension.
 // sim_gstride > 0:  grouped mode, sim [G, P, N] (group g at g * sim_gstride),
-//                   valid must be null. kcnt may be null.
+//                   valid must be null, width 1. kcnt may be null.
 extern "C" int block_topk_launch(const float* sim, long long sim_gstride,
                                  const uint8_t* valid, float* vals, int* kcnt,
-                                 int P, int N, int G, int k, void* stream) {
+                                 int P, int N, int G, int k, int width,
+                                 void* stream) {
   if (P <= 0 || G <= 0 || k <= 0 || N <= 0) return 0;
-  if (G > kMaxGroups || k > 512 || (sim_gstride != 0 && valid != nullptr))
+  if (width < 1 || width > kMaxGroups || k > 512 ||
+      (G + width - 1) / width > 65535 ||
+      (sim_gstride != 0 && (valid != nullptr || width != 1)))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
 #define XMEM_CASE(n) \
   case n: return launch<n>(sim, sim_gstride, valid, vals, kcnt, P, N, G, k, s);
-  switch (sim_gstride != 0 ? 1 : G) {
+  switch (width) {
     XMEM_CASE(1) XMEM_CASE(2) XMEM_CASE(3) XMEM_CASE(4)
     XMEM_CASE(5) XMEM_CASE(6) XMEM_CASE(7) XMEM_CASE(8)
     default: return (int)cudaErrorInvalidValue;

@@ -23,6 +23,16 @@
 // The ragged memory edge (n >= N) and the ragged query edge are masked by
 // bounds checks, so no operand needs padding.
 //
+// Any number of objects and groups: a CTA keeps a hit list per group in
+// shared memory (kCap x 8 B = 16 KB each), so it handles at most kMaxGroups
+// groups and kMaxObjects objects. The objects come in consecutive chunks
+// (readout_kernel.plan_object_chunks), each within both limits, in a table
+// passed by value; the grid is (query row, chunk). A CTA compacts only its
+// chunk's groups and gathers only its chunk's objects, so shared memory
+// stays at the 8-group worst case, and a row is read once per chunk. With
+// at most 8 groups and 64 objects the table is one chunk and the launch is
+// the one before chunking.
+//
 // Bound on this card: bytes. Only the ~k slots a row with sim >= tau carry
 // weight (30 of 17,820 at the main path's shape), so the useful work is
 // ~2 k Cv flops a row and object, while the similarity row has to be read
@@ -60,11 +70,20 @@ constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kTile = kThreads * 4;  // slots a CTA compacts per step
 constexpr int kCap = 2 * kTile;      // list entries a group holds
-constexpr int kMaxObjects = 64;
-constexpr int kMaxGroups = 8;
+constexpr int kMaxObjects = 64;  // objects of a chunk
+constexpr int kMaxGroups = 8;    // groups of a chunk (bits of `need`)
+constexpr int kMaxChunks = 16;   // chunks of a launch: the table stays well
+                                 // inside the 4 KB of kernel parameters
 
-struct GroupIds {
-  int g[kMaxObjects];
+struct Chunk {
+  int o0, no;                      // objects [o0, o0 + no)
+  int ng;                          // distinct groups, local ids 0..ng-1
+  int g[kMaxGroups];               // their global ids
+  unsigned char lg[kMaxObjects];   // local group id of object o0 + i
+};
+
+struct ChunkTable {
+  Chunk c[kMaxChunks];
 };
 
 struct Tile {
@@ -73,10 +92,13 @@ struct Tile {
   uint32_t vraw[kMaxGroups];    // validity bytes of the 4 slots, per group
 };
 
+// validity of the chunk's local groups: local group g reads the row of
+// global group ch.g[g]
 template <int G>
 __device__ __forceinline__ void load_tile(Tile& t, const float* row,
-                                          const uint8_t* valid, int N,
-                                          int n0, bool vec, uint32_t need) {
+                                          const uint8_t* valid,
+                                          const Chunk& ch, int N, int n0,
+                                          bool vec, uint32_t need) {
   if (vec && n0 + 3 < N) {
     const float4 v = __ldg(reinterpret_cast<const float4*>(row + n0));
     t.x[0] = v.x; t.x[1] = v.y; t.x[2] = v.z; t.x[3] = v.w;
@@ -84,7 +106,8 @@ __device__ __forceinline__ void load_tile(Tile& t, const float* row,
 #pragma unroll
     for (int g = 0; g < G; ++g)
       t.vraw[g] = (need >> g) & 1
-          ? __ldg(reinterpret_cast<const unsigned int*>(valid + (size_t)g * N + n0))
+          ? __ldg(reinterpret_cast<const unsigned int*>(
+                valid + (size_t)ch.g[g] * N + n0))
           : 0u;
   } else {
     t.inr = 0;
@@ -101,7 +124,8 @@ __device__ __forceinline__ void load_tile(Tile& t, const float* row,
 #pragma unroll
         for (int i = 0; i < 4; ++i)
           if ((t.inr >> i) & 1)
-            r |= (uint32_t)__ldg(valid + (size_t)g * N + n0 + i) << (8 * i);
+            r |= (uint32_t)__ldg(valid + (size_t)ch.g[g] * N + n0 + i)
+                 << (8 * i);
       }
       t.vraw[g] = r;
     }
@@ -134,18 +158,20 @@ __device__ __forceinline__ void fma4(float (&a)[4], float w,
   a[2] = fmaf(w, __low2float(hi), a[2]); a[3] = fmaf(w, __high2float(hi), a[3]);
 }
 
-// out[o, p, :] (+)= sum over group g(o)'s list of w * values[o, slot, :]
+// out[o, p, :] (+)= sum over group g(o)'s list of w * values[o, slot, :],
+// for the chunk's objects
 template <typename VT>
 __device__ void gather(const VT* __restrict__ values,
                        const int* __restrict__ lslot,
                        const float* __restrict__ lw, const int* lcnt,
                        float* __restrict__ out, int p, int P, int N, int Cv,
-                       int O, const GroupIds& gids, bool add) {
+                       const Chunk& ch, bool add) {
   const int q4 = Cv / 4;
-  for (int u = threadIdx.x; u < O * q4; u += kThreads) {
-    const int o = u / q4;
-    const int c = (u - o * q4) * 4;
-    const int g = gids.g[o];
+  for (int u = threadIdx.x; u < ch.no * q4; u += kThreads) {
+    const int i = u / q4;
+    const int o = ch.o0 + i;
+    const int c = (u - i * q4) * 4;
+    const int g = ch.lg[i];
     const int n = lcnt[g];
     const int* sl = lslot + g * kCap;
     const float* w = lw + g * kCap;
@@ -169,8 +195,8 @@ topk_readout_kernel(const float* __restrict__ sim, const VT* __restrict__ values
                     const float* __restrict__ tau,
                     const float* __restrict__ rmax,
                     const float* __restrict__ invz, float* __restrict__ out,
-                    int P, int N, int Cv, int O, GroupIds gids,
-                    uint32_t need, int vec) {
+                    int P, int N, int Cv, int Gs,
+                    const __grid_constant__ ChunkTable tbl, int vec) {
   extern __shared__ __align__(16) unsigned char smem[];
   int* lslot = reinterpret_cast<int*>(smem);                 // [G][kCap]
   float* lw = reinterpret_cast<float*>(lslot + G * kCap);     // [G][kCap]
@@ -181,26 +207,30 @@ topk_readout_kernel(const float* __restrict__ sim, const VT* __restrict__ values
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int p = blockIdx.x;
+  const Chunk& ch = tbl.c[blockIdx.y];
+  const uint32_t need = (1u << ch.ng) - 1;  // G >= ch.ng: the rest unused
   const float* row = sim + (size_t)p * N;
 
+  // stats [P, Gs] of the chunk's groups
   float t_[G], m_[G], z_[G];
   int cnt[G];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
-    t_[g] = tau[(size_t)p * G + g];
-    m_[g] = rmax[(size_t)p * G + g];
-    z_[g] = invz[(size_t)p * G + g];
+    const size_t at = (size_t)p * Gs + (g < ch.ng ? ch.g[g] : 0);
+    t_[g] = tau[at];
+    m_[g] = rmax[at];
+    z_[g] = invz[at];
     cnt[g] = 0;
   }
   bool flushed = false;
 
   Tile cur;
-  load_tile<G>(cur, row, valid, N, warp * 128 + lane * 4, vec, need);
+  load_tile<G>(cur, row, valid, ch, N, warp * 128 + lane * 4, vec, need);
   for (int t0 = 0, step = 0; t0 < N; t0 += kTile, ++step) {
     const int n0 = t0 + warp * 128 + lane * 4;
     Tile nxt;
     if (t0 + kTile < N)
-      load_tile<G>(nxt, row, valid, N, n0 + kTile, vec, need);
+      load_tile<G>(nxt, row, valid, ch, N, n0 + kTile, vec, need);
     int* wc = wcnt + (step & 1) * G * kWarps;  // double-buffered counts
 
     uint32_t keep[G];
@@ -249,7 +279,7 @@ topk_readout_kernel(const float* __restrict__ sim, const VT* __restrict__ values
         for (int g = 0; g < G; ++g) lcnt[g] = cnt[g];
       }
       __syncthreads();
-      gather<VT>(values, lslot, lw, lcnt, out, p, P, N, Cv, O, gids, flushed);
+      gather<VT>(values, lslot, lw, lcnt, out, p, P, N, Cv, ch, flushed);
       __syncthreads();
       flushed = true;
 #pragma unroll
@@ -262,7 +292,7 @@ topk_readout_kernel(const float* __restrict__ sim, const VT* __restrict__ values
     for (int g = 0; g < G; ++g) lcnt[g] = cnt[g];
   }
   __syncthreads();
-  gather<VT>(values, lslot, lw, lcnt, out, p, P, N, Cv, O, gids, flushed);
+  gather<VT>(values, lslot, lw, lcnt, out, p, P, N, Cv, ch, flushed);
 }
 
 constexpr int kUsageRows = 8;  // row partials per slot, added in fixed order
@@ -297,8 +327,8 @@ topk_usage_kernel(const float* __restrict__ sim,
 template <typename VT, int G>
 int launch_readout(const float* sim, const VT* values, const uint8_t* valid,
                    const float* tau, const float* rmax, const float* invz,
-                   const GroupIds& gids, uint32_t need, int O, float* out,
-                   int P, int N, int Cv, cudaStream_t stream) {
+                   const ChunkTable& tbl, int nchunks, float* out, int P,
+                   int N, int Cv, int Gs, cudaStream_t stream) {
   const size_t bytes = (size_t)G * kCap * 8 + (size_t)(2 * kWarps + 1) * G * 4;
   cudaError_t e = cudaFuncSetAttribute(
       topk_readout_kernel<VT, G>,
@@ -306,22 +336,23 @@ int launch_readout(const float* sim, const VT* values, const uint8_t* valid,
   if (e != cudaSuccess) return (int)e;
   const bool vec = N % 4 == 0 && reinterpret_cast<uintptr_t>(sim) % 16 == 0 &&
                    reinterpret_cast<uintptr_t>(valid) % 4 == 0;
-  topk_readout_kernel<VT, G><<<P, kThreads, bytes, stream>>>(
-      sim, values, valid, tau, rmax, invz, out, P, N, Cv, O, gids, need,
+  topk_readout_kernel<VT, G><<<dim3(P, nchunks), kThreads, bytes, stream>>>(
+      sim, values, valid, tau, rmax, invz, out, P, N, Cv, Gs, tbl,
       vec ? 1 : 0);
   return (int)cudaGetLastError();
 }
 
+// G: the most groups a chunk of the table has
 template <typename VT>
 int launch_readout_g(int G, const float* sim, const VT* values,
                      const uint8_t* valid, const float* tau,
                      const float* rmax, const float* invz,
-                     const GroupIds& gids, uint32_t need, int O, float* out,
-                     int P, int N, int Cv, cudaStream_t s) {
+                     const ChunkTable& tbl, int nchunks, float* out, int P,
+                     int N, int Cv, int Gs, cudaStream_t s) {
 #define XMEM_CASE(n)                                                       \
   case n:                                                                  \
-    return launch_readout<VT, n>(sim, values, valid, tau, rmax, invz, gids, \
-                                 need, O, out, P, N, Cv, s);
+    return launch_readout<VT, n>(sim, values, valid, tau, rmax, invz, tbl, \
+                                 nchunks, out, P, N, Cv, Gs, s);
   switch (G) {
     XMEM_CASE(1) XMEM_CASE(2) XMEM_CASE(3) XMEM_CASE(4)
     XMEM_CASE(5) XMEM_CASE(6) XMEM_CASE(7) XMEM_CASE(8)
@@ -332,32 +363,57 @@ int launch_readout_g(int G, const float* sim, const VT* values,
 
 }  // namespace
 
-// Cv must be a multiple of 4 and the value rows 16-byte (f32) or 8-byte
-// (bf16) aligned; the wrapper checks both.
+// The chunk table, as readout_kernel._k1_table writes it: chunks holds per
+// chunk (o0, o1, number of groups, kMaxGroups global group ids), local the
+// local group id of every object of the chunks, in order. G: the groups of
+// the stats [P, G] and the validity [G, N]. Cv must be a multiple of 4 and
+// the value rows 16-byte (f32) or 8-byte (bf16) aligned; the wrapper checks
+// both.
 extern "C" int topk_readout_launch(const float* sim, const void* values,
                                    int values_bf16, const uint8_t* valid,
                                    const float* tau, const float* rmax,
-                                   const float* invz, const int* group_ids,
-                                   int O, float* out, int P, int N, int Cv,
-                                   int G, void* stream) {
-  if (O > kMaxObjects || G > kMaxGroups || Cv % 4 != 0)
+                                   const float* invz, const int* chunks,
+                                   const int* local, int nchunks, float* out,
+                                   int P, int N, int Cv, int G, void* stream) {
+  if (nchunks <= 0 || nchunks > kMaxChunks || Cv % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  if (P <= 0 || O <= 0 || Cv <= 0) return 0;
-  if (N <= 0) return (int)cudaMemsetAsync(out, 0, (size_t)O * P * Cv * 4,
-                                          (cudaStream_t)stream);
-  GroupIds gids;
-  uint32_t need = 0;
-  for (int o = 0; o < kMaxObjects; ++o) {
-    gids.g[o] = o < O ? group_ids[o] : 0;
-    if (o < O) need |= 1u << group_ids[o];
+  ChunkTable tbl;
+  int maxg = 0, at = 0;
+  for (int c = 0; c < nchunks; ++c) {
+    const int* r = chunks + c * (3 + kMaxGroups);
+    Chunk& ch = tbl.c[c];
+    ch.o0 = r[0];
+    ch.no = r[1] - r[0];
+    ch.ng = r[2];
+    if (ch.no <= 0 || ch.no > kMaxObjects || ch.ng <= 0 ||
+        ch.ng > kMaxGroups)
+      return (int)cudaErrorInvalidValue;
+    for (int g = 0; g < kMaxGroups; ++g) {
+      ch.g[g] = g < ch.ng ? r[3 + g] : 0;
+      if (g < ch.ng && (ch.g[g] < 0 || ch.g[g] >= G))
+        return (int)cudaErrorInvalidValue;
+    }
+    for (int i = 0; i < kMaxObjects; ++i) {
+      const int lg = i < ch.no ? local[at + i] : 0;
+      if (lg < 0 || lg >= ch.ng) return (int)cudaErrorInvalidValue;
+      ch.lg[i] = (unsigned char)lg;
+    }
+    at += ch.no;
+    maxg = ch.ng > maxg ? ch.ng : maxg;
   }
+  if (P <= 0 || Cv <= 0) return 0;
+  const int o0 = tbl.c[0].o0;
+  if (N <= 0)
+    return (int)cudaMemsetAsync(out + (size_t)o0 * P * Cv, 0,
+                                (size_t)at * P * Cv * 4, (cudaStream_t)stream);
   cudaStream_t s = (cudaStream_t)stream;
   if (values_bf16)
     return launch_readout_g<__nv_bfloat16>(
-        G, sim, (const __nv_bfloat16*)values, valid, tau, rmax, invz, gids,
-        need, O, out, P, N, Cv, s);
-  return launch_readout_g<float>(G, sim, (const float*)values, valid, tau,
-                                 rmax, invz, gids, need, O, out, P, N, Cv, s);
+        maxg, sim, (const __nv_bfloat16*)values, valid, tau, rmax, invz, tbl,
+        nchunks, out, P, N, Cv, G, s);
+  return launch_readout_g<float>(maxg, sim, (const float*)values, valid, tau,
+                                 rmax, invz, tbl, nchunks, out, P, N, Cv, G,
+                                 s);
 }
 
 extern "C" int topk_usage_launch(const float* sim, const uint8_t* valid0,

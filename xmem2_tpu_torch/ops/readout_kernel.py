@@ -23,6 +23,18 @@ Each wrapper takes its plain version for a tensor on the CPU and its kernel
 for a tensor on a CUDA device, and counts the launches of its kernel in
 LAUNCHES. There is no fallback from a CUDA tensor to the plain version.
 
+Any number of objects and groups: a CTA handles at most CHUNK_GROUPS groups
+(K2 keeps their running top-k in registers, K1 their hit lists in shared
+memory) and K1 at most CHUNK_OBJECTS objects, so both kernels take a grid
+dimension over chunks, in one launch a call. K2 splits the groups into equal
+chunks (plan_group_width); K1 splits the objects into the consecutive ranges
+of plan_object_chunks, passed to the kernel as a table of (object range,
+global group ids, local group id of each object) that holds K1_TABLE_CHUNKS
+chunks (1,024 objects at the least; past that, one launch a table). With
+G <= 8 and O <= 64 each plan is one chunk and the launch is the one it was
+before chunking. The *_chunked functions compute the same decomposition in
+PyTorch.
+
 Ties at the k-th value: like the JAX kernels, the streamed pass includes the
 WHOLE tied set and folds the tie count into Z (_stats_from_vals), so weights
 sum to exactly 1; the dense reference (similarity.softmax_w_top) keeps an
@@ -39,6 +51,10 @@ from xmem2_tpu_torch.ops.similarity import (
     NEG_INF, get_similarity_padded, top_k_values)
 
 BN = 512  # the JAX package's memory tile: widths count padded to it
+CHUNK_GROUPS = 8      # groups a CTA of K1 or K2 handles
+CHUNK_OBJECTS = 64    # objects a CTA of K1 gathers
+K1_TABLE_CHUNKS = 16  # object chunks one K1 launch takes (its table is a
+                      # kernel parameter; csrc/topk_readout.cu kMaxChunks)
 
 # kernel launches of each wrapper since the last reset_launch_counts()
 LAUNCHES = {'block_topk_candidates': 0, 'topk_readout': 0, 'topk_usage': 0}
@@ -77,6 +93,35 @@ def _check_cuda(name: str, device: torch.device, **tensors):
 def _raise_on(rc: int, name: str):
     if rc != 0:
         raise RuntimeError(f'{name}: kernel launch failed with CUDA error {rc}')
+
+
+def plan_group_width(g: int) -> int:
+    """Groups per K2 CTA: the G groups in ceil(G / CHUNK_GROUPS) chunks of
+    this width (the last may be narrower). G <= 8: G, one chunk."""
+    n = -(-g // CHUNK_GROUPS)
+    return -(-g // n)
+
+
+def plan_object_chunks(group_ids: Sequence[int]
+                       ) -> List[Tuple[int, int, Tuple[int, ...]]]:
+    """K1's object chunks: consecutive ranges [o0, o1) covering every
+    object once, in order, each holding at most CHUNK_OBJECTS objects and
+    touching at most CHUNK_GROUPS distinct groups, with the range's
+    distinct global group ids sorted (an object's local group id is its
+    group's index there). Greedy and contiguous, charged per distinct group
+    like the JAX package's _chunk_bounds (xmem2_tpu/ops/readout_kernel.py
+    :130-155); a contiguous range keeps values[o0:o1] a view. G <= 8 and
+    O <= 64: one chunk."""
+    chunks, o0, groups = [], 0, set()
+    for o, g in enumerate(group_ids):
+        if o > o0 and (o - o0 == CHUNK_OBJECTS or (
+                g not in groups and len(groups) == CHUNK_GROUPS)):
+            chunks.append((o0, o, tuple(sorted(groups))))
+            o0, groups = o, set()
+        groups.add(g)
+    if len(group_ids):
+        chunks.append((o0, len(group_ids), tuple(sorted(groups))))
+    return chunks
 
 
 # ---------------------------------------------------------------------------
@@ -139,23 +184,37 @@ def block_topk_candidates(sim: torch.Tensor, valid: Optional[torch.Tensor],
         tensors['valid'] = (valid, (torch.bool,))
     _check_cuda('block_topk_candidates', sim.device, **tensors)
     g, p, n = _k2_inputs(sim, valid)
-    if g > 8:
-        raise ValueError('block_topk_candidates: more than 8 groups')
     vals = torch.empty((g, p, k), dtype=torch.float32, device=sim.device)
     kcnt = torch.empty((g, p), dtype=torch.int32, device=sim.device)
     fn = cuda_build.library('block_topk').block_topk_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
-                   ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 4 \
+                   ctypes.c_void_p, ctypes.c_void_p] + [ctypes.c_int] * 5 \
         + [ctypes.c_void_p]
+    # grouped mode: one group a CTA row; shared: chunks of plan_group_width
+    width = 1 if valid is None else plan_group_width(g)
     rc = fn(
         _ptr(sim), ctypes.c_longlong(0 if valid is not None else p * n),
         None if valid is None else _ptr(valid), _ptr(vals), _ptr(kcnt),
         ctypes.c_int(p), ctypes.c_int(n), ctypes.c_int(g), ctypes.c_int(k),
-        _stream(sim))
+        ctypes.c_int(width), _stream(sim))
     _raise_on(rc, 'block_topk_candidates')
     LAUNCHES['block_topk_candidates'] += 1
     return vals, kcnt
+
+
+def block_topk_candidates_chunked(sim: torch.Tensor, valid: torch.Tensor,
+                                  k: int,
+                                  candidates=block_topk_candidates_plain):
+    """K2's grid over group chunks in PyTorch (shared mode): one call of
+    `candidates` per chunk of plan_group_width(G) groups, the results
+    concatenated. Groups are independent, so it equals the unchunked
+    call bit for bit."""
+    g = valid.shape[0]
+    w = plan_group_width(g)
+    parts = [candidates(sim, valid[a:a + w], k) for a in range(0, g, w)]
+    return (torch.cat([v for v, _ in parts]),
+            torch.cat([c for _, c in parts]))
 
 
 # ---------------------------------------------------------------------------
@@ -299,6 +358,19 @@ def topk_usage_plain(sim, valid, tau, rmax, invz) -> torch.Tensor:
     return _weights(sim, valid[0], tau[:, 0], rmax[:, 0], invz[:, 0]).sum(0)
 
 
+def _k1_table(plan, group_ids):
+    """The kernel's chunk table as two ctypes int arrays: per chunk (o0,
+    o1, number of groups, CHUNK_GROUPS global group ids, -1 padded), and
+    per object of the chunks its local group id."""
+    chunks, local = [], []
+    for o0, o1, groups in plan:
+        chunks += [o0, o1, len(groups)] + list(groups) \
+            + [-1] * (CHUNK_GROUPS - len(groups))
+        local += [groups.index(gid) for gid in group_ids[o0:o1]]
+    return (ctypes.c_int * len(chunks))(*chunks), \
+        (ctypes.c_int * len(local))(*local)
+
+
 def topk_readout(sim: torch.Tensor, values: torch.Tensor, valid: torch.Tensor,
                  tau: torch.Tensor, rmax: torch.Tensor, invz: torch.Tensor,
                  group_ids: Tuple[int, ...]) -> torch.Tensor:
@@ -320,27 +392,48 @@ def topk_readout(sim: torch.Tensor, values: torch.Tensor, valid: torch.Tensor,
                          'disagree in shape')
     if tau.shape != (p, g) or rmax.shape != (p, g) or invz.shape != (p, g):
         raise ValueError('topk_readout: stats must be [P, G]')
-    if max(group_ids) >= g or o > 64 or g > 8:
-        raise ValueError('topk_readout: group id out of range, > 64 objects '
-                         'or > 8 groups')
+    if max(group_ids) >= g or min(group_ids) < 0:
+        raise ValueError('topk_readout: group id out of range')
     if cv % 4 or values.data_ptr() % 16:
         raise ValueError('topk_readout: the kernel reads values four '
                          'channels at a time: Cv must be a multiple of 4 and '
                          'values 16-byte aligned')
     out = torch.empty((o, p, cv), dtype=torch.float32, device=sim.device)
-    gids = (ctypes.c_int * o)(*group_ids)
     fn = cuda_build.library('topk_readout').topk_readout_launch
     fn.restype = ctypes.c_int
     fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int] \
-        + [ctypes.c_void_p] * 5 + [ctypes.c_int, ctypes.c_void_p] \
+        + [ctypes.c_void_p] * 6 + [ctypes.c_int, ctypes.c_void_p] \
         + [ctypes.c_int] * 4 + [ctypes.c_void_p]
-    rc = fn(
-        _ptr(sim), _ptr(values), ctypes.c_int(values.dtype == torch.bfloat16),
-        _ptr(valid), _ptr(tau), _ptr(rmax), _ptr(invz), gids, ctypes.c_int(o),
-        _ptr(out), ctypes.c_int(p), ctypes.c_int(n), ctypes.c_int(cv),
-        ctypes.c_int(g), _stream(sim))
-    _raise_on(rc, 'topk_readout')
-    LAUNCHES['topk_readout'] += 1
+    plan = plan_object_chunks(group_ids)
+    for c0 in range(0, len(plan), K1_TABLE_CHUNKS):
+        part = plan[c0:c0 + K1_TABLE_CHUNKS]
+        chunks, local = _k1_table(part, group_ids)
+        rc = fn(
+            _ptr(sim), _ptr(values),
+            ctypes.c_int(values.dtype == torch.bfloat16), _ptr(valid),
+            _ptr(tau), _ptr(rmax), _ptr(invz), chunks, local,
+            ctypes.c_int(len(part)), _ptr(out),
+            ctypes.c_int(p), ctypes.c_int(n), ctypes.c_int(cv),
+            ctypes.c_int(g), _stream(sim))
+        _raise_on(rc, 'topk_readout')
+        LAUNCHES['topk_readout'] += 1
+    return out
+
+
+def topk_readout_chunked(sim, values, valid, tau, rmax, invz,
+                         group_ids: Tuple[int, ...],
+                         readout=topk_readout_plain) -> torch.Tensor:
+    """K1's grid over object chunks in PyTorch: for each range of
+    plan_object_chunks, `readout` over the range's values (a view), its
+    groups' validity rows and stats, and the local group ids, written into
+    the range's output rows."""
+    out = torch.empty((len(group_ids), sim.shape[0], values.shape[-1]),
+                      dtype=torch.float32, device=sim.device)
+    for o0, o1, groups in plan_object_chunks(group_ids):
+        gg = list(groups)
+        out[o0:o1] = readout(
+            sim, values[o0:o1], valid[gg], tau[:, gg], rmax[:, gg],
+            invz[:, gg], tuple(groups.index(gid) for gid in group_ids[o0:o1]))
     return out
 
 
