@@ -383,6 +383,7 @@ def _many_calls(RK, qk, qe, segs, gids, label):
     import torch
     from xmem2_tpu_torch.ops.similarity import get_similarity_padded
     from xmem2_tpu_torch.parallel import sharded_readout as SR
+    from xmem2_tpu_torch.utils.profiling import reset_counters
 
     k, p = 30, qk.shape[0]
     out, usages = RK.fused_topk_readout_multi(segs, qk, qe, gids, k)
@@ -404,9 +405,9 @@ def _many_calls(RK, qk, qe, segs, gids, label):
     out_sh, _ = SR.sharded_topk_readout_multi(sharded, qk, qe, gids, k)
     err_sh = (out_sh - out).abs().max().item()
     del sharded, out_sh
-    RK.reset_launch_counts()
+    reset_counters()
     RK.fused_topk_readout_multi(segs, qk, qe, gids, k)
-    per_call = dict(RK.LAUNCHES)
+    per_call = _kernel_launches()
     times = {}
     for vdt in (torch.bfloat16, torch.float32):
         sv = [(mk, ms, v.to(vdt), va) for mk, ms, v, va in segs]
@@ -429,6 +430,7 @@ def _wide_case(RK):
     the plain versions."""
     import torch
     from xmem2_tpu_torch.ops.similarity import get_similarity_padded
+    from xmem2_tpu_torch.utils.profiling import reset_counters
 
     p, n, o, k = 1620, 2000, 136, 30
     gen = torch.Generator(device='cuda').manual_seed(7)
@@ -444,9 +446,9 @@ def _wide_case(RK):
         raise AssertionError('K2 at 136 groups differs from plain')
     stats = RK._topk_stats_fused([sim], [valid], k)
     gids = tuple(range(o))
-    RK.reset_launch_counts()
+    reset_counters()
     out = RK.topk_readout(sim, values, valid, *stats, gids)
-    launches = RK.LAUNCHES['topk_readout']
+    launches = _kernel_launches()['topk_readout']
     err = (out - RK.topk_readout_plain(sim, values, valid, *stats, gids)
            ).abs().max().item()
     log(f'[kernels] 136 objects in 136 groups (P={p}, N={n}, Cv=64): K2 '
@@ -686,6 +688,16 @@ def _timed(seconds: dict, key: str):
     return wrap
 
 
+def _kernel_launches():
+    """Each readout kernel's launches since the counters were last reset
+    (utils/profiling.py: reset_counters(), and every run_on_video call as
+    it starts)."""
+    from xmem2_tpu_torch.utils.profiling import counters
+    c = counters()
+    return {k: c.get(f'kernel.{k}', 0)
+            for k in ('block_topk_candidates', 'topk_readout', 'topk_usage')}
+
+
 def _launched(tag, counts):
     """Fails unless every kernel launched during the run of `tag`."""
     for name, c in counts.items():
@@ -724,8 +736,7 @@ def _run(imgs, anns, out, ckpt, device, overwrite, frames=(0, 60), **kw):
 
 
 def main_path_phase(work: Path, card: str):
-    from xmem2_tpu_torch.ops.readout_kernel import LAUNCHES, \
-        reset_launch_counts
+    from xmem2_tpu_torch.utils.profiling import reset_counters
 
     ckpt = work / 'synth_xmem.pth'
     synth_checkpoint(ckpt)
@@ -736,10 +747,10 @@ def main_path_phase(work: Path, card: str):
     _run(imgs, anns, work / 'warm', ckpt, 'cuda', {})
     counts = {}
     for tag, over in (('default (bf16, chunked)', {}), ('exact (f32)', exact)):
-        reset_launch_counts()
+        reset_counters()
         seconds, written, bad = _run(imgs, anns, work / tag.split()[0], ckpt,
                                      'cuda', over)
-        counts[tag] = dict(LAUNCHES)
+        counts[tag] = _kernel_launches()
         log(f'[main] {tag}: {n} frames at 854x480 in {seconds:.3f} s = '
             f'{n / seconds:.2f} frames/s on {card}; launches {counts[tag]}')
         if written != n:
@@ -822,20 +833,19 @@ def augment_phase(work: Path, card: str):
     """The default run with augment_images_with_masks: both annotated frames
     and 11 augmentations of each in permanent memory (24 frames)."""
     from xmem2_tpu_torch.inference import run_on_video as R
-    from xmem2_tpu_torch.ops.readout_kernel import LAUNCHES, \
-        reset_launch_counts
+    from xmem2_tpu_torch.utils.profiling import reset_counters
 
     n = 120
     imgs, anns = work / 'video480' / 'JPEGImages', work / 'video480' / \
         'Annotations'
     seconds = {}
-    reset_launch_counts()
+    reset_counters()
     with _cores() as cores, _patched(R, '_preload_permanent_memory',
                                      _timed(seconds, 'preload')):
         run_s, written, bad = _run(imgs, anns, work / 'augment', work /
                                    'synth_xmem.pth', 'cuda', {},
                                    augment_images_with_masks=True)
-    counts = dict(LAUNCHES)
+    counts = _kernel_launches()
     mm = cores[0].memory
     log(f'[augment] {n} frames at 854x480, permanent memory {mm.perm_size} '
         f'slots ({mm.perm_size // mm.HW} frames) in a store of '
@@ -916,8 +926,7 @@ def spill_phase(work: Path, card: str):
     import torch
     from PIL import Image
     from xmem2_tpu_torch.memory import manager as MM
-    from xmem2_tpu_torch.ops.readout_kernel import LAUNCHES, \
-        reset_launch_counts
+    from xmem2_tpu_torch.utils.profiling import reset_counters
 
     n = 120
     imgs, anns = work / 'video480' / 'JPEGImages', work / 'video480' / \
@@ -941,21 +950,21 @@ def spill_phase(work: Path, card: str):
         raise AssertionError(f'spill off: {written} of {n} masks, {bad} '
                              f'non-finite probabilities')
     over['spill_long_term'] = True
-    reset_launch_counts()
+    reset_counters()
     with _cores() as cores, _patched(MM.ST, 'evict_by_usage', count):
         run_s, written, bad = _run(imgs, anns, work / 'spill', work /
                                    'synth_xmem.pth', 'cuda', over)
-    counts = dict(LAUNCHES)
+    counts = _kernel_launches()
     core = cores[0]
     mm = core.memory
     archived, long_before = len(mm.archive), mm.long_size
     core.update_config(dict(core.config, max_long_term_elements=2000))
     revived = mm.long_size - long_before
-    reset_launch_counts()
+    reset_counters()
     frame = np.asarray(Image.open(imgs / 'frame_000000.jpg').convert('RGB'))
     prob = core.step(frame)
     torch.cuda.synchronize()
-    step_counts = dict(LAUNCHES)
+    step_counts = _kernel_launches()
     log(f'[spill] {n} frames at 854x480, {len(evictions)} evictions of '
         f'{evictions} rows: {run_s:.3f} s = {n / run_s:.2f} frames/s on '
         f'{card} (the same settings without spill: {off_s:.3f} s = '
@@ -981,8 +990,7 @@ def eval_phase(work: Path, card: str):
     videos of 30 frames, once with --benchmark and once with
     --save_scores."""
     from xmem2_tpu_torch import eval as port_eval
-    from xmem2_tpu_torch.ops.readout_kernel import LAUNCHES, \
-        reset_launch_counts
+    from xmem2_tpu_torch.utils.profiling import reset_counters
 
     root = work / 'generic'
     for vid, second_at in (('a', 15), ('b', 30)):   # 'b': frame 0 only
@@ -997,10 +1005,10 @@ def eval_phase(work: Path, card: str):
     out = {}
     for tag, extra in (('benchmark', ['--benchmark']),
                        ('save_scores', ['--save_scores'])):
-        reset_launch_counts()
+        reset_counters()
         stats = port_eval.main(base + ['--output', str(work / f'eval_{tag}')]
                                + extra)
-        counts = dict(LAUNCHES)
+        counts = _kernel_launches()
         masks = list((work / f'eval_{tag}').rglob('*.png'))
         scores = list((work / f'eval_{tag}').rglob('*.npz'))
         log(f'[eval] --{tag}: {stats["frames"]} frames of two 854x480 videos '
@@ -1138,8 +1146,7 @@ def shard_phase(work: Path, card: str):
     memory_shards 2 and 4 on this card, in bf16 and f32. Returns the
     launches of the runs with 4 shards, by dtype."""
     import torch
-    from xmem2_tpu_torch.ops.readout_kernel import LAUNCHES, \
-        reset_launch_counts
+    from xmem2_tpu_torch.utils.profiling import reset_counters
 
     shard_kernel_check(card)
     n = 60
@@ -1160,13 +1167,13 @@ def shard_phase(work: Path, card: str):
     for dtype, over in (('bf16', {}), ('f32', exact)):
         for tag, extra, shards in runs:
             out = work / f'shard_{dtype}_{tag.replace(" ", "_")}'
-            reset_launch_counts()
+            reset_counters()
             torch.cuda.reset_peak_memory_stats()
             seconds, written, bad = _run(
                 imgs, anns, out, ckpt, 'cuda', dict(over, **extra),
                 frames=(0, 30), shard_devices=['cuda:0'] * shards
                 if shards else None)
-            counts[dtype, tag] = dict(LAUNCHES)
+            counts[dtype, tag] = _kernel_launches()
             peak = torch.cuda.max_memory_allocated() / 1e9
             share, worst = _mask_diff(
                 work / f'shard_{dtype}_frame_by_frame', out) \
@@ -1248,8 +1255,7 @@ def many_phase(work: Path, card: str) -> dict:
     Returns the launches of each run."""
     import torch
     from xmem2_tpu_torch.memory import manager as MM
-    from xmem2_tpu_torch.ops.readout_kernel import LAUNCHES, \
-        reset_launch_counts
+    from xmem2_tpu_torch.utils.profiling import reset_counters
 
     ckpt = work / 'synth_xmem.pth'
     exact = {'compute_dtype': 'float32', 'value_store_dtype': 'float32'}
@@ -1279,7 +1285,7 @@ def many_phase(work: Path, card: str) -> dict:
         n, blocks = videos[name]
         imgs, anns, frames = made[name]
         tag = f'{name} {mode}'
-        reset_launch_counts()
+        reset_counters()
         matches.clear()
         torch.cuda.reset_peak_memory_stats()
         with _cores() as cores, _patched(MM, 'fused_topk_readout_multi',
@@ -1287,7 +1293,7 @@ def many_phase(work: Path, card: str) -> dict:
             seconds, written, bad = _run(
                 imgs, anns, work / f'many_{tag.replace(" ", "_")}', ckpt,
                 'cuda', over, frames=frames)
-        counts[tag] = dict(LAUNCHES)
+        counts[tag] = _kernel_launches()
         peak = torch.cuda.max_memory_allocated() / 1e9
         mm = cores[0].memory
         per = {k: round(v / max(len(matches), 1), 3)
@@ -1824,8 +1830,7 @@ def interactive_session(work: Path, tag: str, device: str, dtype: str,
     from xmem2_tpu_torch.interactive.s2m import (
         S2MController, load_s2m_state_dict)
     from xmem2_tpu_torch.interactive.session import SessionController
-    from xmem2_tpu_torch.ops.readout_kernel import LAUNCHES, \
-        reset_launch_counts
+    from xmem2_tpu_torch.utils.profiling import reset_counters
 
     imgs, anns = synth_video(work / f'{tag}_video', h, w, n, 0)
     with contextlib.chdir(work):
@@ -1914,7 +1919,7 @@ def interactive_session(work: Path, tag: str, device: str, dtype: str,
     # 4-5. reference, propagation, candidates, config, gauges
     if not ctl.save_reference():
         raise AssertionError(f'{tag}: frame 0 has no mask to save')
-    reset_launch_counts()
+    reset_counters()
     _sync(device)
     t0 = time.perf_counter()
     done = ctl.propagate('forward')
@@ -1924,7 +1929,7 @@ def interactive_session(work: Path, tag: str, device: str, dtype: str,
     done_full = ctl.full_propagate()
     _sync(device)
     out['full_s'] = time.perf_counter() - t0
-    out['launches'] = dict(LAUNCHES)
+    out['launches'] = _kernel_launches()
     if done != n - 1 or done_full != n - 1:
         raise AssertionError(f'{tag}: propagated {done} and {done_full} of '
                              f'{n - 1} frames')

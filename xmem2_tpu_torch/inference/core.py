@@ -25,6 +25,7 @@ from xmem2_tpu_torch.inference.preprocess import preprocess_frame
 from xmem2_tpu_torch.memory import store as ST
 from xmem2_tpu_torch.memory.manager import MemoryManager
 from xmem2_tpu_torch.ops.tensor import aggregate, pad_divide_by, unpad
+from xmem2_tpu_torch.utils.profiling import annotate, count
 
 
 class InferenceCore:
@@ -110,106 +111,115 @@ class InferenceCore:
              return_key_and_stuff: bool = False, pack_hw=None):
         """One frame. Returns prob [1+O, H, W] (background included, unpadded);
         with pack_hw, (prob, packed index mask at pack_hw)."""
-        self.curr_ti += 1
+        with annotate('xmem.frame'):
+            count('frames')
+            self.curr_ti += 1
 
-        if manually_curated_masks:
-            is_mem_frame = (mask is not None) and (not end)
-        else:
-            is_mem_frame = ((self.curr_ti - self.last_mem_ti >= self.mem_every)
-                            or (mask is not None)) and (not end)
-        is_ignore = do_not_add_mask_to_memory
+            if manually_curated_masks:
+                is_mem_frame = (mask is not None) and (not end)
+            else:
+                is_mem_frame = (
+                    (self.curr_ti - self.last_mem_ti >= self.mem_every)
+                    or (mask is not None)) and (not end)
+            is_ignore = do_not_add_mask_to_memory
 
-        need_segment = (valid_labels is None) or (
-            len(self.all_labels) != len(valid_labels))
-        is_deep_update = (
-            (self.deep_update_sync and is_mem_frame) or
-            (not self.deep_update_sync and
-             self.curr_ti - self.last_deep_update_ti >= self.deep_update_every)
-        ) and (not end)
-        is_normal_update = (not self.deep_update_sync or not is_deep_update) \
-            and (not end)
+            need_segment = (valid_labels is None) or (
+                len(self.all_labels) != len(valid_labels))
+            is_deep_update = (
+                (self.deep_update_sync and is_mem_frame) or
+                (not self.deep_update_sync and
+                 self.curr_ti - self.last_deep_update_ti
+                 >= self.deep_update_every)
+            ) and (not end)
+            is_normal_update = (not self.deep_update_sync
+                                or not is_deep_update) and (not end)
 
-        if disable_memory_updates:
-            is_normal_update = False
-            is_deep_update = False
-            is_mem_frame = False
+            if disable_memory_updates:
+                is_normal_update = False
+                is_deep_update = False
+                is_mem_frame = False
 
-        if (mask is None and need_segment
-                and not (is_mem_frame and is_ignore)
-                and self.memory.work_mem_engaged
-                and self.memory.get_hidden() is not None
-                and not self.memory.sharded):
-            res, key, shrinkage, selection, packed = self._plain_frame_step(
-                image, h_out=is_normal_update, mem_frame=is_mem_frame,
-                deep_update=is_deep_update,
-                disable_usage=disable_memory_updates, pack_hw=pack_hw)
+            if (mask is None and need_segment
+                    and not (is_mem_frame and is_ignore)
+                    and self.memory.work_mem_engaged
+                    and self.memory.get_hidden() is not None
+                    and not self.memory.sharded):
+                res, key, shrinkage, selection, packed = \
+                    self._plain_frame_step(
+                        image, h_out=is_normal_update, mem_frame=is_mem_frame,
+                        deep_update=is_deep_update,
+                        disable_usage=disable_memory_updates, pack_hw=pack_hw)
+                if is_mem_frame:
+                    self.last_mem_ti = self.curr_ti
+                    if is_deep_update:
+                        self.last_deep_update_ti = self.curr_ti
+                if disable_memory_updates:
+                    self.curr_ti -= 1
+                if return_key_and_stuff:
+                    return res, key, shrinkage, selection
+                return (res, packed) if pack_hw is not None else res
+
+            image = self._padded(image)
+            key, shrinkage, selection, f16, f8, f4 = \
+                self.network.encode_key(image)
+
+            if disable_memory_updates:
+                self.curr_ti -= 1  # do not advance the iteration
+
+            if need_segment:
+                memory_readout = self.memory.match_memory(
+                    key, selection,
+                    disable_usage_updates=disable_memory_updates)
+                hidden, _, pred_prob_with_bg = self.network.segment(
+                    (f16, f8, f4), memory_readout, self.memory.get_hidden(),
+                    h_out=is_normal_update, strip_bg=False)
+                pred_prob_with_bg = pred_prob_with_bg[0]       # [1+O, H, W]
+                pred_prob_no_bg = pred_prob_with_bg[1:]
+                if is_normal_update:
+                    self.memory.set_hidden(hidden)
+            else:
+                pred_prob_no_bg = pred_prob_with_bg = None
+
+            if mask is not None:
+                mask, _ = pad_divide_by(torch.as_tensor(mask).to(self.device)
+                                        .float(), 16)
+                if pred_prob_no_bg is not None:
+                    # make the prediction consistent with the provided mask
+                    mask_regions = mask.sum(0) > 0.5
+                    pred_prob_no_bg = torch.where(mask_regions[None], 0.0,
+                                                  pred_prob_no_bg)
+                    if valid_labels is not None:
+                        # objects without a label keep their predicted
+                        # probability
+                        keep_pred = [i for i in range(pred_prob_no_bg.shape[0])
+                                     if (i + 1) not in valid_labels]
+                        if keep_pred:
+                            mask = mask.clone()
+                            mask[keep_pred] = pred_prob_no_bg[keep_pred]
+                pred_prob_with_bg = aggregate(mask, dim=0)
+                if not disable_memory_updates:
+                    self.memory.create_hidden_state(len(self.all_labels), key)
+
             if is_mem_frame:
+                value, hidden = self.network.encode_value(
+                    image, f16, self.memory.get_hidden(),
+                    pred_prob_with_bg[1:][None], is_deep_update=is_deep_update)
+                self.memory.add_memory(
+                    key, shrinkage, value, self.all_labels,
+                    selection=selection if self.enable_long_term else None,
+                    ignore=is_ignore)
                 self.last_mem_ti = self.curr_ti
                 if is_deep_update:
+                    self.memory.set_hidden(hidden)
                     self.last_deep_update_ti = self.curr_ti
-            if disable_memory_updates:
-                self.curr_ti -= 1
-            if return_key_and_stuff:
-                return res, key, shrinkage, selection
-            return (res, packed) if pack_hw is not None else res
 
-        image = self._padded(image)
-        key, shrinkage, selection, f16, f8, f4 = self.network.encode_key(image)
-
-        if disable_memory_updates:
-            self.curr_ti -= 1  # do not advance the iteration
-
-        if need_segment:
-            memory_readout = self.memory.match_memory(
-                key, selection, disable_usage_updates=disable_memory_updates)
-            hidden, _, pred_prob_with_bg = self.network.segment(
-                (f16, f8, f4), memory_readout, self.memory.get_hidden(),
-                h_out=is_normal_update, strip_bg=False)
-            pred_prob_with_bg = pred_prob_with_bg[0]       # [1+O, H, W]
-            pred_prob_no_bg = pred_prob_with_bg[1:]
-            if is_normal_update:
-                self.memory.set_hidden(hidden)
-        else:
-            pred_prob_no_bg = pred_prob_with_bg = None
-
-        if mask is not None:
-            mask, _ = pad_divide_by(torch.as_tensor(mask).to(self.device)
-                                    .float(), 16)
-            if pred_prob_no_bg is not None:
-                # make the prediction consistent with the provided mask
-                mask_regions = mask.sum(0) > 0.5
-                pred_prob_no_bg = torch.where(mask_regions[None], 0.0,
-                                              pred_prob_no_bg)
-                if valid_labels is not None:
-                    # objects without a label keep their predicted probability
-                    keep_pred = [i for i in range(pred_prob_no_bg.shape[0])
-                                 if (i + 1) not in valid_labels]
-                    if keep_pred:
-                        mask = mask.clone()
-                        mask[keep_pred] = pred_prob_no_bg[keep_pred]
-            pred_prob_with_bg = aggregate(mask, dim=0)
-            if not disable_memory_updates:
-                self.memory.create_hidden_state(len(self.all_labels), key)
-
-        if is_mem_frame:
-            value, hidden = self.network.encode_value(
-                image, f16, self.memory.get_hidden(),
-                pred_prob_with_bg[1:][None], is_deep_update=is_deep_update)
-            self.memory.add_memory(
-                key, shrinkage, value, self.all_labels,
-                selection=selection if self.enable_long_term else None,
-                ignore=is_ignore)
-            self.last_mem_ti = self.curr_ti
-            if is_deep_update:
-                self.memory.set_hidden(hidden)
-                self.last_deep_update_ti = self.curr_ti
-
-        res = unpad(pred_prob_with_bg, self.pad)
-        if return_key_and_stuff:
-            return res, key, shrinkage, selection
-        if pack_hw is not None:
-            return res, prob_to_mask_packed(res, pack_hw)
-        return res
+            with annotate('xmem.output.pack'):
+                res = unpad(pred_prob_with_bg, self.pad)
+                if return_key_and_stuff:
+                    return res, key, shrinkage, selection
+                if pack_hw is not None:
+                    return res, prob_to_mask_packed(res, pack_hw)
+                return res
 
     def _plain_frame_step(self, image, *, h_out, mem_frame, deep_update,
                           disable_usage, pack_hw):
@@ -240,17 +250,20 @@ class InferenceCore:
                 is_deep_update=deep_update)
             if deep_update:
                 hidden_new = hidden_deep
-            ST.append(mm.temp, qk, shrinkage.reshape(-1),
-                      qe if self.enable_long_term else None,
-                      value[0].reshape(n_obj, value.shape[2], -1)
-                      .transpose(1, 2), mm._group_presence())
+            count('memory.appends')
+            with annotate('xmem.memory.append'):
+                ST.append(mm.temp, qk, shrinkage.reshape(-1),
+                          qe if self.enable_long_term else None,
+                          value[0].reshape(n_obj, value.shape[2], -1)
+                          .transpose(1, 2), mm._group_presence())
         if (h_out or deep_update) and hidden_new is not None:
             mm.set_hidden(hidden_new)
         if mem_frame:
             mm.note_temp_append()
-        res = unpad(prob[0], self.pad)
-        packed = prob_to_mask_packed(res, pack_hw) if pack_hw is not None \
-            else None
+        with annotate('xmem.output.pack'):
+            res = unpad(prob[0], self.pad)
+            packed = prob_to_mask_packed(res, pack_hw) \
+                if pack_hw is not None else None
         return res, key, shrinkage, selection, packed
 
     def plain_run_length(self) -> int:
@@ -277,35 +290,41 @@ class InferenceCore:
         Equivalent to k step() calls on plain frames (core.py:134-214,
         :452-479). images: [k, H, W, 3] float or uint8. Returns the k packed
         masks."""
-        k = len(images)
-        avail = self.plain_run_length()
-        if not 0 < k <= avail:
-            raise ValueError(
-                f'step_chunk of {k} frames, but only {avail} plain frames '
-                f'are available before the next memory/deep-update event')
-        net = self.network
-        x = torch.stack([self._image(im) for im in images])
-        x, self.pad = pad_divide_by(x, 16)
-        keys, _, selections, f16s, f8s, f4s = net.encode_key(x)
-        ck = keys.shape[1]
-        h16, w16 = keys.shape[-2:]
-        qk = keys.permute(0, 2, 3, 1).reshape(-1, ck)
-        qe = selections.permute(0, 2, 3, 1).reshape(-1, ck)
-        out = self.memory.match_query(qk, qe, usage_frames=k)
-        n_obj = out.shape[0]
-        readouts = out.reshape(n_obj, k, h16, w16, -1).permute(1, 0, 4, 2, 3)
+        with annotate('xmem.chunk'):
+            k = len(images)
+            avail = self.plain_run_length()
+            if not 0 < k <= avail:
+                raise ValueError(
+                    f'step_chunk of {k} frames, but only {avail} plain frames '
+                    f'are available before the next memory/deep-update event')
+            count('chunks')
+            count('chunk_frames', k)
+            count('frames', k)
+            net = self.network
+            x = torch.stack([self._image(im) for im in images])
+            x, self.pad = pad_divide_by(x, 16)
+            keys, _, selections, f16s, f8s, f4s = net.encode_key(x)
+            ck = keys.shape[1]
+            h16, w16 = keys.shape[-2:]
+            qk = keys.permute(0, 2, 3, 1).reshape(-1, ck)
+            qe = selections.permute(0, 2, 3, 1).reshape(-1, ck)
+            out = self.memory.match_query(qk, qe, usage_frames=k)
+            n_obj = out.shape[0]
+            readouts = out.reshape(n_obj, k, h16, w16, -1) \
+                .permute(1, 0, 4, 2, 3)
 
-        hidden = self.memory.get_hidden()
-        packs = []
-        for j in range(k):
-            hidden, _, prob = net.segment(
-                (f16s[j:j + 1], f8s[j:j + 1], f4s[j:j + 1]),
-                readouts[j:j + 1], hidden, h_out=True, strip_bg=False)
-            packs.append(prob_to_mask_packed(unpad(prob[0], self.pad),
-                                             pack_hw))
-        self.memory.set_hidden(hidden)
-        self.curr_ti += k
-        return packs
+            hidden = self.memory.get_hidden()
+            packs = []
+            for j in range(k):
+                hidden, _, prob = net.segment(
+                    (f16s[j:j + 1], f8s[j:j + 1], f4s[j:j + 1]),
+                    readouts[j:j + 1], hidden, h_out=True, strip_bg=False)
+                with annotate('xmem.output.pack'):
+                    packs.append(prob_to_mask_packed(
+                        unpad(prob[0], self.pad), pack_hw))
+            self.memory.set_hidden(hidden)
+            self.curr_ti += k
+            return packs
 
     @torch.no_grad()
     def put_to_permanent_memory(self, image, mask, ti: Optional[int] = None

@@ -14,6 +14,7 @@ from xmem2_tpu_torch.config import pin_f32_precision, resolve_device, \
     resolve_dtype_name, torch_dtype
 from xmem2_tpu_torch.models.network import XMem
 from xmem2_tpu_torch.models.resnet import cast_weights
+from xmem2_tpu_torch.utils.profiling import annotate
 
 
 class XMemNet:
@@ -50,22 +51,26 @@ class XMemNet:
     @torch.no_grad()
     def encode_key(self, frame: torch.Tensor):
         """frame [B, 3, H, W] -> (key, shrinkage, selection, f16, f8, f4)."""
-        return self.model.encode_key(frame)
+        with annotate('xmem.net.encode_key'):
+            return self.model.encode_key(frame)
 
     @torch.no_grad()
     def encode_value(self, frame, f16, hidden: Optional[torch.Tensor], masks,
                      is_deep_update: bool = True):
         """masks [B, O, H, W] -> (value [B, O, Cv, h, w], hidden')."""
-        if hidden is None:
-            hidden = self._zero_hidden(masks.shape[0], masks.shape[1], f16)
-        return self.model.encode_value(frame, f16, hidden, masks,
-                                       is_deep_update)
+        with annotate('xmem.net.encode_value'):
+            if hidden is None:
+                hidden = self._zero_hidden(masks.shape[0], masks.shape[1],
+                                           f16)
+            return self.model.encode_value(frame, f16, hidden, masks,
+                                           is_deep_update)
 
     @torch.no_grad()
     def segment(self, multi_scale_features, memory_readout, hidden,
                 h_out: bool = True, strip_bg: bool = True):
-        if hidden is None:
-            b, o = memory_readout.shape[:2]
-            hidden = self._zero_hidden(b, o, multi_scale_features[0])
-        return self.model.segment(multi_scale_features, memory_readout,
-                                  hidden, h_out=h_out, strip_bg=strip_bg)
+        with annotate('xmem.net.segment'):
+            if hidden is None:
+                b, o = memory_readout.shape[:2]
+                hidden = self._zero_hidden(b, o, multi_scale_features[0])
+            return self.model.segment(multi_scale_features, memory_readout,
+                                      hidden, h_out=h_out, strip_bg=strip_bg)

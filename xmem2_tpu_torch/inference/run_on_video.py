@@ -36,19 +36,24 @@ from xmem2_tpu_torch.inference.net import XMemNet
 from xmem2_tpu_torch.inference.postprocess import unpack_mask
 from xmem2_tpu_torch.utils.image_saver import ParallelImageSaver
 from xmem2_tpu_torch.utils.iou import compute_array_iou
+from xmem2_tpu_torch.utils.profiling import annotate, call_span, count
 
 
 def _load_main_objects(imgs_in_path, masks_in_path, config, device,
                        shard_devices=None):
-    model_path = config.get('model')
-    if model_path is None or not os.path.exists(str(model_path)):
-        raise FileNotFoundError(f'model checkpoint not found: {model_path}')
-    network = XMemNet(load_model(model_path, device),
-                      config.get('compute_dtype', 'auto'), device)
-    processor = InferenceCore(network, config=config, device=device,
-                              shard_devices=shard_devices)
-    return MaskMapper(), processor, _create_reader(imgs_in_path,
-                                                   masks_in_path, config)
+    with annotate('xmem.load'):
+        model_path = config.get('model')
+        if model_path is None or not os.path.exists(str(model_path)):
+            raise FileNotFoundError(
+                f'model checkpoint not found: {model_path}')
+        model = load_model(model_path, device)
+        count('load.bytes', sum(t.nbytes
+                                for t in model.state_dict().values()))
+        network = XMemNet(model, config.get('compute_dtype', 'auto'), device)
+        processor = InferenceCore(network, config=config, device=device,
+                                  shard_devices=shard_devices)
+        return MaskMapper(), processor, _create_reader(imgs_in_path,
+                                                       masks_in_path, config)
 
 
 def _create_reader(imgs_in_path, masks_in_path, config) -> VideoReader:
@@ -75,37 +80,40 @@ def _preload_permanent_memory(frames_to_put_in_permanent_memory: List[int],
     each (JAX run_on_video.py:97-113), without an index (ti=None): the image
     is augmented in raw space, then normalised and resized on the host; the
     mask is augmented after its resize."""
-    total_preloading_time = 0.0
-    at_least_one_mask_loaded = False
-    for j in frames_to_put_in_permanent_memory:
-        sample = vid_reader[j]
-        frame_rgb = sample.rgb if sample.rgb is not None else sample.rgb_u8
-        if sample.mask is None:
-            raise FileNotFoundError(
-                f"Couldn't find mask {j}! Check that the filename matches the "
-                f"frame or follows the `frame_%06d.png` format.")
-        msk, _ = mapper.convert_mask(sample.mask, exhaustive=True)
-        if min(msk.shape) == 0:
-            warn(f'Skipping adding frame {j} to permanent memory: empty mask')
-            continue
-        if sample.need_resize:
-            msk = vid_reader.resize_mask(msk)
-        processor.set_all_labels(list(mapper.remappings.values()))
-        a = perf_counter()
-        processor.put_to_permanent_memory(frame_rgb, msk, ti=j)
-        if augment_images_with_masks:
-            # translate_distance comes from the resized (H, W), as in the
-            # reference (run_on_video.py:232-233); frame_rgb may be the raw
-            # frame under device preprocessing and must not be used here
-            augs = get_determenistic_augmentations(
-                (msk.shape[-2], msk.shape[-1], 3), msk, subset='best_all')
-            for img_aug, mask_aug in augs:
-                processor.put_to_permanent_memory(
-                    vid_reader.im_transform(img_aug(sample.raw_image_pil)),
-                    mask_aug(np.asarray(msk)))
-        total_preloading_time += perf_counter() - a
-        at_least_one_mask_loaded = True
-    return at_least_one_mask_loaded, total_preloading_time
+    with annotate('xmem.preload'):
+        total_preloading_time = 0.0
+        at_least_one_mask_loaded = False
+        for j in frames_to_put_in_permanent_memory:
+            sample = vid_reader[j]
+            frame_rgb = sample.rgb if sample.rgb is not None else sample.rgb_u8
+            if sample.mask is None:
+                raise FileNotFoundError(
+                    f"Couldn't find mask {j}! Check that the filename "
+                    f"matches the frame or follows the `frame_%06d.png` "
+                    f"format.")
+            msk, _ = mapper.convert_mask(sample.mask, exhaustive=True)
+            if min(msk.shape) == 0:
+                warn(f'Skipping adding frame {j} to permanent memory: '
+                     f'empty mask')
+                continue
+            if sample.need_resize:
+                msk = vid_reader.resize_mask(msk)
+            processor.set_all_labels(list(mapper.remappings.values()))
+            a = perf_counter()
+            processor.put_to_permanent_memory(frame_rgb, msk, ti=j)
+            if augment_images_with_masks:
+                # translate_distance comes from the resized (H, W), as in the
+                # reference (run_on_video.py:232-233); frame_rgb may be the raw
+                # frame under device preprocessing and must not be used here
+                augs = get_determenistic_augmentations(
+                    (msk.shape[-2], msk.shape[-1], 3), msk, subset='best_all')
+                for img_aug, mask_aug in augs:
+                    processor.put_to_permanent_memory(
+                        vid_reader.im_transform(img_aug(sample.raw_image_pil)),
+                        mask_aug(np.asarray(msk)))
+            total_preloading_time += perf_counter() - a
+            at_least_one_mask_loaded = True
+        return at_least_one_mask_loaded, total_preloading_time
 
 
 class _MaskFetcher:
@@ -132,9 +140,12 @@ class _MaskFetcher:
         ti, sample, packed, event, width, bits, provided = \
             self.inflight.popleft()
         if event is not None:
-            event.synchronize()
-        self.finish(ti, sample, unpack_mask(packed.numpy(), width, bits),
-                    provided)
+            count('fetch.waits')
+            with annotate('xmem.fetch.wait'):
+                event.synchronize()
+        with annotate('xmem.fetch.finish'):
+            self.finish(ti, sample, unpack_mask(packed.numpy(), width, bits),
+                        provided)
 
     def drain(self):
         while self.inflight:
@@ -191,6 +202,7 @@ def _inference_on_video(frames_with_masks, imgs_in_path, masks_in_path,
                 out_img = vid_reader.map_the_colors_back(
                     Image.fromarray(mapper.remap_index_mask(out_mask)))
                 im_saver.save_mask(mask=out_img, frame_name=sample.frame)
+                count('masks.enqueued')
                 if save_overlay:
                     im_saver.save_overlay(orig_img=sample.raw_image_pil,
                                           mask=out_img,
@@ -204,56 +216,59 @@ def _inference_on_video(frames_with_masks, imgs_in_path, masks_in_path,
 
         def peek(j):
             while len(lookahead) <= j:
-                lookahead.append(next(sample_iter))
+                with annotate('xmem.reader.wait'):
+                    lookahead.append(next(sample_iter))
             return lookahead[j]
 
         loop_start = perf_counter()
-        ti = 0
-        while ti < vid_length:
-            sample = peek(0)
-            out_hw = tuple(int(x) for x in sample.shape)
+        with annotate('xmem.loop'):
+            ti = 0
+            while ti < vid_length:
+                sample = peek(0)
+                out_hw = tuple(int(x) for x in sample.shape)
 
-            k = 0
-            if use_chunks and ti not in frames_with_masks:
-                k = min(processor.plain_run_length(), vid_length - 1 - ti)
-                while any((ti + j) in frames_with_masks for j in range(k)):
-                    k -= 1
-            if k > 1:
-                chunk = [peek(j) for j in range(k)]
-                for _ in range(k):
-                    lookahead.popleft()
-                packs = processor.step_chunk(
-                    [s.rgb if s.rgb is not None else s.rgb_u8 for s in chunk],
+                k = 0
+                if use_chunks and ti not in frames_with_masks:
+                    k = min(processor.plain_run_length(), vid_length - 1 - ti)
+                    while any((ti + j) in frames_with_masks for j in range(k)):
+                        k -= 1
+                if k > 1:
+                    chunk = [peek(j) for j in range(k)]
+                    for _ in range(k):
+                        lookahead.popleft()
+                    packs = processor.step_chunk(
+                        [s.rgb if s.rgb is not None else s.rgb_u8
+                         for s in chunk], pack_hw=out_hw)
+                    for j, s in enumerate(chunk):
+                        fetcher.submit(ti + j, s, packs[j], out_hw[1],
+                                       processor.pack_bits, False)
+                    ti += k
+                    continue
+
+                frame_rgb = sample.rgb if sample.rgb is not None \
+                    else sample.rgb_u8
+                msk = labels = None
+                if ti in frames_with_masks and sample.mask is not None:
+                    msk, labels = mapper.convert_mask(sample.mask,
+                                                      exhaustive=True)
+                    if sample.need_resize:
+                        msk = vid_reader.resize_mask(msk)
+                    processor.set_all_labels(list(mapper.remappings.values()))
+                do_not_add_mask_to_memory = (ti == 0) \
+                    if original_memory_mechanism else msk is not None
+
+                _, packed = processor.step(
+                    frame_rgb, msk, labels, end=(ti == vid_length - 1),
+                    manually_curated_masks=manually_curated_masks,
+                    do_not_add_mask_to_memory=do_not_add_mask_to_memory,
                     pack_hw=out_hw)
-                for j, s in enumerate(chunk):
-                    fetcher.submit(ti + j, s, packs[j], out_hw[1],
-                                   processor.pack_bits, False)
-                ti += k
-                continue
-
-            frame_rgb = sample.rgb if sample.rgb is not None \
-                else sample.rgb_u8
-            msk = labels = None
-            if ti in frames_with_masks and sample.mask is not None:
-                msk, labels = mapper.convert_mask(sample.mask, exhaustive=True)
-                if sample.need_resize:
-                    msk = vid_reader.resize_mask(msk)
-                processor.set_all_labels(list(mapper.remappings.values()))
-            do_not_add_mask_to_memory = (ti == 0) if original_memory_mechanism \
-                else msk is not None
-
-            _, packed = processor.step(
-                frame_rgb, msk, labels, end=(ti == vid_length - 1),
-                manually_curated_masks=manually_curated_masks,
-                do_not_add_mask_to_memory=do_not_add_mask_to_memory,
-                pack_hw=out_hw)
-            fetcher.submit(ti, sample, packed, out_hw[1], processor.pack_bits,
-                           msk is not None)
-            lookahead.popleft()
-            ti += 1
-            if print_progress and ti % 50 == 0:
-                print(f'{ti}/{vid_length} frames')
-        fetcher.drain()
+                fetcher.submit(ti, sample, packed, out_hw[1],
+                               processor.pack_bits, msk is not None)
+                lookahead.popleft()
+                ti += 1
+                if print_progress and ti % 50 == 0:
+                    print(f'{ti}/{vid_length} frames')
+            fetcher.drain()
         total_processing_time = perf_counter() - loop_start
         im_saver.wait_for_jobs_to_finish(verbose=print_progress)
 
@@ -289,12 +304,14 @@ def run_on_video(
     the devices of the D memory shards, by default the first D visible).
     Returns one row per frame ('frame', 'mask_provided' and, with
     compute_iou, 'iou'): a pandas DataFrame where pandas is installed, else
-    a list of dicts."""
-    return _inference_on_video(
-        imgs_in_path=imgs_in_path, masks_in_path=masks_in_path,
-        masks_out_path=masks_out_path, frames_with_masks=frames_with_masks,
-        compute_iou=compute_iou, print_progress=print_progress,
-        device=device, shard_devices=shard_devices, **kwargs)
+    a list of dicts. Resets the counters of utils/profiling.py, which then
+    count this call."""
+    with call_span():
+        return _inference_on_video(
+            imgs_in_path=imgs_in_path, masks_in_path=masks_in_path,
+            masks_out_path=masks_out_path, frames_with_masks=frames_with_masks,
+            compute_iou=compute_iou, print_progress=print_progress,
+            device=device, shard_devices=shard_devices, **kwargs)
 
 
 def read_foreground_masks(masks_dir: Union[str, os.PathLike]

@@ -53,6 +53,7 @@ from xmem2_tpu_torch.ops.similarity import get_similarity, masked_softmax
 from xmem2_tpu_torch.parallel.mesh import memory_devices
 from xmem2_tpu_torch.parallel.sharded_readout import \
     sharded_topk_readout_multi
+from xmem2_tpu_torch.utils.profiling import annotate, count
 
 
 def _prefix(s: StoreBuffers, n: int):
@@ -383,11 +384,19 @@ class MemoryManager:
     def match_query(self, qk: torch.Tensor, qe: Optional[torch.Tensor],
                     disable_usage_updates: bool = False,
                     usage_frames: int = 1) -> torch.Tensor:
-        """qk/qe [P, Ck] -> readout [O, P, Cv] f32."""
-        match = _match_sharded if self.sharded else _match_kernel
-        return match(self.temp, self.perm, self.long, qk, qe,
-                     usage_frames=usage_frames,
-                     **self.match_config(disable_usage_updates))
+        """qk/qe [P, Ck] -> readout [O, P, Cv] f32. Counts the readout, its
+        query rows and the query rows times the slots it reads."""
+        with annotate('xmem.readout'):
+            cfg = self.match_config(disable_usage_updates)
+            slots = self.temp_size \
+                + (self.long_size if cfg['use_long'] else 0) \
+                + (self.perm_size if cfg['use_perm'] else 0)
+            count('readouts')
+            count('readout.query_rows', qk.shape[0])
+            count('readout.slot_rows', qk.shape[0] * slots)
+            match = _match_sharded if self.sharded else _match_kernel
+            return match(self.temp, self.perm, self.long, qk, qe,
+                         usage_frames=usage_frames, **cfg)
 
     def match_memory(self, query_key: torch.Tensor,
                      selection: Optional[torch.Tensor],
@@ -418,25 +427,34 @@ class MemoryManager:
         s = shrinkage.reshape(-1)
         v = value[0].flatten(2).transpose(1, 2)                 # [O, HW, Cv]
         e = selection[0].flatten(1).T if selection is not None else None
+        count('memory.appends')
         if permanent:
             pos = self.perm_size // self.HW
-            self.S.append(self.perm, k, s, e, v, self._group_presence())
+            with annotate('xmem.memory.append'):
+                self.S.append(self.perm, k, s, e, v, self._group_presence())
             self.perm_size += self.HW
             if ti is not None:
                 self.frame_id_to_permanent_mem_idx[ti] = pos
         else:
-            self.S.append(self.temp, k, s, e, v, self._group_presence())
+            with annotate('xmem.memory.append'):
+                self.S.append(self.temp, k, s, e, v, self._group_presence())
             self.note_temp_append()
 
     def note_temp_append(self):
         """After one frame was appended to working memory: overflow handling
         (eviction + consolidation, reference memory_manager.py:272-281)."""
-        if self.enable_long_term and self.temp_size >= self.max_work_elements:
+        if not (self.enable_long_term
+                and self.temp_size >= self.max_work_elements):
+            return
+        with annotate('xmem.memory.consolidate'):
             if self.long_size >= self.max_long_elements - self.num_prototypes:
                 max_keep = self.max_long_elements - self.num_prototypes
                 if self.spill_long_term:
                     self._spill_evicted(max_keep)
+                before = self.long_size
                 self.S.evict_by_usage(self.long, max_keep)
+                count('memory.evicted_slots', before - self.long_size)
+            count('memory.consolidations')
             self.compress_features()
 
     def _spill_evicted(self, max_keep: int):

@@ -20,8 +20,9 @@ per object group, the value readout and the usage count. Split of work:
      the group-0 usage sum. No dense affinity is ever stored.
 
 Each wrapper takes its plain version for a tensor on the CPU and its kernel
-for a tensor on a CUDA device, and counts the launches of its kernel in
-LAUNCHES. There is no fallback from a CUDA tensor to the plain version.
+for a tensor on a CUDA device, and counts the launches of its kernel in the
+counters of utils/profiling.py ('kernel.<wrapper>'). There is no fallback
+from a CUDA tensor to the plain version.
 
 Any number of objects and groups: a CTA handles at most CHUNK_GROUPS groups
 (K2 keeps their running top-k in registers, K1 their hit lists in shared
@@ -49,21 +50,13 @@ import torch
 from xmem2_tpu_torch.ops import cuda_build
 from xmem2_tpu_torch.ops.similarity import (
     NEG_INF, get_similarity_padded, top_k_values)
+from xmem2_tpu_torch.utils.profiling import count
 
 BN = 512  # the JAX package's memory tile: widths count padded to it
 CHUNK_GROUPS = 8      # groups a CTA of K1 or K2 handles
 CHUNK_OBJECTS = 64    # objects a CTA of K1 gathers
 K1_TABLE_CHUNKS = 16  # object chunks one K1 launch takes (its table is a
                       # kernel parameter; csrc/topk_readout.cu kMaxChunks)
-
-# kernel launches of each wrapper since the last reset_launch_counts()
-LAUNCHES = {'block_topk_candidates': 0, 'topk_readout': 0, 'topk_usage': 0}
-
-
-def reset_launch_counts():
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
-
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
@@ -199,7 +192,7 @@ def block_topk_candidates(sim: torch.Tensor, valid: Optional[torch.Tensor],
         ctypes.c_int(p), ctypes.c_int(n), ctypes.c_int(g), ctypes.c_int(k),
         ctypes.c_int(width), _stream(sim))
     _raise_on(rc, 'block_topk_candidates')
-    LAUNCHES['block_topk_candidates'] += 1
+    count('kernel.block_topk_candidates')
     return vals, kcnt
 
 
@@ -416,7 +409,7 @@ def topk_readout(sim: torch.Tensor, values: torch.Tensor, valid: torch.Tensor,
             ctypes.c_int(p), ctypes.c_int(n), ctypes.c_int(cv),
             ctypes.c_int(g), _stream(sim))
         _raise_on(rc, 'topk_readout')
-        LAUNCHES['topk_readout'] += 1
+        count('kernel.topk_readout')
     return out
 
 
@@ -459,7 +452,7 @@ def topk_usage(sim: torch.Tensor, valid: torch.Tensor, tau: torch.Tensor,
                                _ptr(invz), _ptr(usage), ctypes.c_int(p),
                                ctypes.c_int(n), ctypes.c_int(g), _stream(sim))
     _raise_on(rc, 'topk_usage')
-    LAUNCHES['topk_usage'] += 1
+    count('kernel.topk_usage')
     return usage
 
 

@@ -19,7 +19,9 @@ from PIL import Image
 # 'spawn' children, not fork: the parent runs CUDA and thread pools, and a
 # fork()ed child inherits their locked mutexes. Spawned workers start clean
 # but re-import the caller's __main__ module, so entry points keep their work
-# under the __main__ check.
+# under the __main__ check. They also re-import this module, which therefore
+# imports torch (through utils/profiling.py, for the spans) only inside the
+# methods that the parent alone runs.
 _MP = multiprocessing.get_context('spawn')
 
 
@@ -111,11 +113,13 @@ class ParallelImageSaver:
             return
         self._mask_queue.put((mask, frame_name, 'masks', '.png'))
         if self._mask_proc is None:
-            self._mask_proc = _MP.Process(
-                target=_mask_worker,
-                args=(self._mask_queue, self._vid_name, self._p_out),
-                daemon=True)
-            self._mask_proc.start()
+            from xmem2_tpu_torch.utils.profiling import annotate
+            with annotate('xmem.writers.start'):
+                self._mask_proc = _MP.Process(
+                    target=_mask_worker,
+                    args=(self._mask_queue, self._vid_name, self._p_out),
+                    daemon=True)
+                self._mask_proc.start()
 
     def save_overlay(self, orig_img: Image.Image, mask: Image.Image,
                      frame_name: str):
@@ -127,11 +131,13 @@ class ParallelImageSaver:
             return
         self._overlay_queue.put((orig_img, mask, frame_name, 'overlay', '.jpg'))
         if self._overlay_proc is None:
-            self._overlay_proc = _MP.Process(
-                target=_overlay_worker,
-                args=(self._overlay_queue, self._vid_name, self._p_out,
-                      self._object_color), daemon=True)
-            self._overlay_proc.start()
+            from xmem2_tpu_torch.utils.profiling import annotate
+            with annotate('xmem.writers.start'):
+                self._overlay_proc = _MP.Process(
+                    target=_overlay_worker,
+                    args=(self._overlay_queue, self._vid_name, self._p_out,
+                          self._object_color), daemon=True)
+                self._overlay_proc.start()
 
     def qsize(self) -> Tuple[int, int]:
         if self._workers == 0:
@@ -164,21 +170,23 @@ class ParallelImageSaver:
     def wait_for_jobs_to_finish(self, verbose: bool = False):
         if self._workers == 0 or self._closed:
             return
-        for q, p in ((self._mask_queue, self._mask_proc),
-                     (self._overlay_queue, self._overlay_proc)):
-            if p is not None:
-                q.put(None)                      # shutdown sentinel
-        if verbose:
-            while True:
-                m, o = self.qsize()
-                if max(m, o) == 0:
-                    break
-                print(f'Finishing saving the results, {m:>4d} masks and '
-                      f'{o:>4d} overlays left.')
-                time.sleep(1)
-        for p in (self._mask_proc, self._overlay_proc):
-            if p is not None:
-                p.join()
-        self._teardown(kill=False)
+        from xmem2_tpu_torch.utils.profiling import annotate
+        with annotate('xmem.writers.drain'):
+            for q, p in ((self._mask_queue, self._mask_proc),
+                         (self._overlay_queue, self._overlay_proc)):
+                if p is not None:
+                    q.put(None)                      # shutdown sentinel
+            if verbose:
+                while True:
+                    m, o = self.qsize()
+                    if max(m, o) == 0:
+                        break
+                    print(f'Finishing saving the results, {m:>4d} masks and '
+                          f'{o:>4d} overlays left.')
+                    time.sleep(1)
+            for p in (self._mask_proc, self._overlay_proc):
+                if p is not None:
+                    p.join()
+            self._teardown(kill=False)
         if verbose:
             print('All saving jobs finished')
