@@ -27,14 +27,19 @@ fails the run when it fails:
               a group of its own (two K1 launches: past one launch's chunk
               table); then `match ms`, one
               whole fused_topk_readout_multi call (three segments, usage
-              on);
+              on); and the batch-norm epilogue (BN, + residual, + ReLU) at
+              the trunks' shapes for a chunk of nine 480x864 frames, bf16
+              and f32: torch.equal to its plain version, ms, plain ms,
+              F.batch_norm's ms where the case is a batch norm alone, and
+              its bound;
   4. main:    `run_on_video` of the port on the card, at the published XMem
               widths with seeded synthetic weights, on a synthetic 854x480
               video of 120 frames with two objects annotated on frames 0 and
               60: once in the default mode (bf16, chunked) and once with
               --exact (f32). Every mask must be written, no probability NaN,
-              and every kernel's launch count must rise during the run; then
-              a profiler window over a default run;
+              and every kernel's launch count (the batch-norm epilogue's
+              too) must rise during the run; then a profiler window over a
+              default run;
   5. augment: the default run with augment_images_with_masks (24 frames in
               permanent memory), launch counts, and a profiler window;
   6. select:  select_k_next_best_annotation_candidates (k = 5) from the
@@ -186,6 +191,31 @@ def _time_ms(fn, reps: int) -> float:
     a.record()
     for _ in range(reps):
         fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / reps
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device milliseconds a call: `reps` calls captured in one CUDA graph
+    and replayed between CUDA events, so the host's cost of a call (which
+    _time_ms measures where it exceeds the device's work) is left out."""
+    import torch
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    graph.replay()
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / reps
@@ -456,6 +486,77 @@ def _wide_case(RK):
         f'{err:.3e} (tol {KERNEL_TOL["float32"]})')
     if launches != 2 or err > KERNEL_TOL['float32']:
         raise AssertionError('K1 past one chunk table disagrees')
+
+
+# the trunks' batch norms at 480p (480x864 after padding), a chunk of nine
+# frames: (label, channels, plane, residual, relu)
+BN_CASES = (
+    ('stem', 64, (240, 432), False, True),
+    ('res2 bn1', 64, (120, 216), False, True),
+    ('res2 downsample', 256, (120, 216), False, False),
+    ('res2 bn3 + residual', 256, (120, 216), True, True),
+    ('layer2 bn2', 128, (60, 108), False, True),
+    ('layer2 bn3 + residual', 512, (60, 108), True, True),
+    ('layer3 bn2', 256, (30, 54), False, True),
+    ('layer3 bn3 + residual', 1024, (30, 54), True, True))
+
+
+def bn_epilogue_phase(batch: int = 9):
+    """The batch-norm epilogue (ops/csrc/bn_epilogue.cu) at the trunks'
+    shapes in bf16 and f32: torch.equal to its plain version, then the
+    device ms a call (_graph_ms) beside the plain version's, F.batch_norm's
+    (training=False) where the case is a batch norm alone, and the bound
+    (input, residual and output bytes over 3.35 TB/s), and the wrapper's
+    ms a call with its host work (_time_ms). Returns the bf16 row of the
+    res2 downsample, a batch norm alone, for the kernels line."""
+    import torch
+    import torch.nn.functional as F
+    from xmem2_tpu_torch.ops.bn_epilogue import bn_epilogue, bn_epilogue_plain
+
+    gen = torch.Generator(device='cuda').manual_seed(0)
+    rows = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        for label, c, hw, residual, relu in BN_CASES:
+            shape = (batch, c) + hw
+            x = (3 * torch.randn(shape, generator=gen, device='cuda')
+                 ).to(dtype)
+            res = torch.randn(shape, generator=gen, device='cuda').to(dtype) \
+                if residual else None
+            vecs = (1 + 0.5 * torch.randn(c, generator=gen, device='cuda'),
+                    0.3 * torch.randn(c, generator=gen, device='cuda'),
+                    0.3 * torch.randn(c, generator=gen, device='cuda'),
+                    0.01 + torch.randn(c, generator=gen, device='cuda').abs())
+            same = torch.equal(bn_epilogue(x, *vecs, res, relu),
+                               bn_epilogue_plain(x, *vecs, res, relu))
+            nbytes = x.numel() * x.element_size() * (3 if residual else 2)
+            flops = x.numel() * (3.0 if residual else 2.0)
+            w, b, m, v = vecs
+            library_ms = None if residual or relu else _graph_ms(
+                lambda: F.batch_norm(x, m, v, w, b, training=False,
+                                     eps=1e-5), 10)
+            r = dict(ms=_graph_ms(lambda: bn_epilogue(x, *vecs, res, relu),
+                                  10),
+                     plain_ms=_graph_ms(
+                         lambda: bn_epilogue_plain(x, *vecs, res, relu), 10),
+                     bound=_bound_ms(nbytes, flops, 'float32'),
+                     library_ms=library_ms, max_abs_err=0.0,
+                     shape=f'{label} {list(shape)} {str(dtype)[6:]}',
+                     timing='CUDA-graph replay')
+            call_ms = _time_ms(lambda: bn_epilogue(x, *vecs, res, relu), 20)
+            plain_call_ms = _time_ms(
+                lambda: bn_epilogue_plain(x, *vecs, res, relu), 20)
+            rows[label, str(dtype)[6:]] = r
+            log(f'[bn] {label} {list(shape)} {str(dtype)[6:]}: '
+                f'{r["ms"]:.4f} ms, bound {r["bound"][0]:.4f} ms '
+                f'({r["bound"][1]}), plain {r["plain_ms"]:.4f} ms, '
+                f'F.batch_norm {library_ms}, '
+                f'torch.equal {same}; a call with its host work '
+                f'{call_ms:.4f} ms, plain {plain_call_ms:.4f} ms')
+            if not same:
+                raise AssertionError(f'bn_epilogue {label} {dtype} differs '
+                                     f'from its plain version')
+            del x, res
+    return rows['res2 downsample', 'bfloat16']
 
 
 def kernel_phase():
@@ -736,7 +837,7 @@ def _run(imgs, anns, out, ckpt, device, overwrite, frames=(0, 60), **kw):
 
 
 def main_path_phase(work: Path, card: str):
-    from xmem2_tpu_torch.utils.profiling import reset_counters
+    from xmem2_tpu_torch.utils.profiling import counters, reset_counters
 
     ckpt = work / 'synth_xmem.pth'
     synth_checkpoint(ckpt)
@@ -751,6 +852,7 @@ def main_path_phase(work: Path, card: str):
         seconds, written, bad = _run(imgs, anns, work / tag.split()[0], ckpt,
                                      'cuda', over)
         counts[tag] = _kernel_launches()
+        counts[tag]['bn_epilogue'] = counters().get('kernel.bn_epilogue', 0)
         log(f'[main] {tag}: {n} frames at 854x480 in {seconds:.3f} s = '
             f'{n / seconds:.2f} frames/s on {card}; launches {counts[tag]}')
         if written != n:
@@ -1660,12 +1762,14 @@ def train_check_phase(card: str):
     slots with one empty): the loss within 1e-5 relative, every trainable
     gradient leaf within 1e-3 of its largest entry (plus 1e-7 of the
     largest gradient anywhere, the rounding floor of a leaf whose gradient
-    is zero in exact arithmetic)."""
+    is zero in exact arithmetic). Every batch norm of the card's step runs
+    the epilogue kernel (kernel.bn_epilogue counts them)."""
     import numpy as np
     import torch
     from xmem2_tpu_torch.bridge.torch_params import build_train_model
     from xmem2_tpu_torch.models.init import init_params
     from xmem2_tpu_torch.train.trainer import sample_draws, train_forward
+    from xmem2_tpu_torch.utils.profiling import counters, reset_counters
 
     sd, dims = init_params(seed=0)
     for name, s in (('key_proj.key_proj', 0.01), ('key_proj.d_proj', 0.01),
@@ -1690,10 +1794,13 @@ def train_check_phase(card: str):
         def on(x):
             return torch.from_numpy(x).to(dev)
 
+        reset_counters()
         losses = train_forward(model, on(frames).permute(0, 1, 4, 2, 3),
                                on(ffg), on(sel), on(cls), ref_idx, deep, 0,
                                10, 20)
         losses['total_loss'].backward()
+        if dev == 'cuda':
+            bn_launches = counters().get('kernel.bn_epilogue', 0)
         result[dev] = (float(losses['total_loss'].detach()),
                        {n: p.grad.cpu().numpy()
                         for n, p in model.named_parameters()})
@@ -1706,7 +1813,11 @@ def train_check_phase(card: str):
     log(f'[train-check] f32 step, card vs CPU: loss {loss_c:.7f} vs '
         f'{loss_h:.7f} (rel {rel:.2e}, limit 1e-5); worst gradient leaf '
         f'{worst[1]} at {worst[0]:.2e} of its scale (limit 1e-3), '
-        f'{len(g_h)} leaves, on {card}')
+        f'{len(g_h)} leaves, on {card}; batch-norm epilogue launches '
+        f'{bn_launches}')
+    if not bn_launches:
+        raise AssertionError('the training step launched no batch-norm '
+                             'epilogue')
     if rel > 1e-5:
         raise AssertionError('card and CPU losses disagree')
     if worst[0] > 1e-3:
@@ -2086,6 +2197,7 @@ def fbrs_modes_check(work: Path, card: str, devices=('cuda', 'cpu')):
     networks: PERF.md section 6)."""
     import torch
     from xmem2_tpu_torch.interactive.fbrs.controller import FBRSController
+    from xmem2_tpu_torch.utils.profiling import counters, reset_counters
 
     h, w = 96, 160
     image = _blob_image(h, w)
@@ -2104,6 +2216,7 @@ def fbrs_modes_check(work: Path, card: str, devices=('cuda', 'cpu')):
                 for dev in devices]
         for mode in FBRS_MODES:
             got = []
+            reset_counters()
             for dev, ctl in zip(devices, ctls):
                 params = ctl.controller.predictor_params
                 ctl.controller.reset_predictor(dict(
@@ -2120,19 +2233,24 @@ def fbrs_modes_check(work: Path, card: str, devices=('cuda', 'cpu')):
             (ma, ea), (mb, eb) = got
             diff = max(float((x != y).mean()) for x, y in zip(ma, mb))
             rows.append((backbone, mode, diff, ea, eb,
-                         [float(m.mean()) for m in mb]))
+                         [float(m.mean()) for m in mb],
+                         counters().get('kernel.bn_epilogue', 0)))
     log(f'[interactive-check] six predictor modes x two backbones, two '
         f'clicks each, f32 at 96x160, card vs CPU on {card} (limits: 1% of '
         f'pixels, equal evaluations):')
-    for backbone, mode, diff, ea, eb, fg in rows:
+    for backbone, mode, diff, ea, eb, fg, bn in rows:
         log(f'[interactive-check]   {backbone} {mode}: masks differ on '
             f'{diff:.4%} of pixels, L-BFGS evaluations {ea} vs {eb}, '
             f'foreground after each click '
-            + ', '.join(f'{x:.2%}' for x in fg))
-    for backbone, mode, diff, ea, eb, _ in rows:
+            + ', '.join(f'{x:.2%}' for x in fg)
+            + f'; batch-norm epilogue launches {bn}')
+    for backbone, mode, diff, ea, eb, _, bn in rows:
         if diff > 0.01 or ea != eb:
             raise AssertionError(f'{backbone} {mode}: card and CPU clicks '
                                  f'disagree ({diff:.4%}, {ea} vs {eb})')
+        if 'cuda' in devices and not bn:
+            raise AssertionError(f'{backbone} {mode}: no batch-norm epilogue '
+                                 f'launched on the card')
 
 
 def kernels_json(rows, launches):
@@ -2150,6 +2268,9 @@ def kernels_json(rows, launches):
                                   'xmem2_tpu/ops/readout_kernel.py:53'),
         'topk_usage': (src + 'topk_readout.cu',
                        'xmem2_tpu/ops/readout_kernel.py:53'),
+        'bn_epilogue': (src + 'bn_epilogue.cu',
+                        'none (XLA fuses the batch norm, the residual add and '
+                        'the ReLU on the TPU)'),
     }
     out = []
     for label, counts in launches.items():
@@ -2161,7 +2282,8 @@ def kernels_json(rows, launches):
                 'name': name if label == 'P=1620' else
                 f'{name} {label.split(" ", 1)[1]}',
                 'route': 'cuda', 'source': source, 'replaces': replaces,
-                'launches': counts[name],
+                'launches': counts[name], 'shape': r.get('shape', label),
+                'timing': r.get('timing', 'CUDA events around calls'),
                 'max_abs_err': r['max_abs_err'], 'ms': r['ms'],
                 'plain_ms': r['plain_ms'], 'bound_ms': r['bound'][0],
                 'bound_by': r['bound'][1], 'library_ms': r['library_ms']})
@@ -2203,6 +2325,7 @@ def main(argv=None) -> int:
         return 0
     build_phase()
     rows = kernel_phase()
+    rows['bn_epilogue', 'P=1620'] = bn_epilogue_phase()
     match_phase()
     with tempfile.TemporaryDirectory() as work:
         counts = main_path_phase(Path(work), card)

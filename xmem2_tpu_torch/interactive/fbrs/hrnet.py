@@ -129,7 +129,9 @@ class ObjectAttentionBlock2D(nn.Module):
         value = self.f_down(proxy).flatten(2).float()
         kc = query.shape[1]
         sim = torch.softmax(query.mT @ key * kc ** -0.5, dim=-1)  # [B, P, K]
-        ctx = (sim @ value.mT).mT.reshape(b, kc, h, w)
+        # contiguous, as proxy below: a 1x1 convolution over this
+        # transposed view would return channels-last activations
+        ctx = (sim @ value.mT).mT.reshape(b, kc, h, w).contiguous()
         return self.f_up(ctx.to(feats.dtype))
 
 
@@ -145,7 +147,7 @@ class SpatialOCR(nn.Module):
 
     def forward(self, feats, context):
         """context [B, K, C] from spatial_gather."""
-        proxy = context.mT[..., None].to(feats.dtype)            # [B, C, K, 1]
+        proxy = context.mT[..., None].contiguous().to(feats.dtype)  # [B,C,K,1]
         ctx = self.object_context_block(feats, proxy)
         return self.conv_bn_dropout(torch.cat([ctx, feats], dim=1))
 
@@ -191,8 +193,8 @@ class HighResolutionNet(nn.Module):
     def compute_hrnet_feats(self, x):
         """Stem -> layer1 -> stages 2..4 -> upsample+concat
         (hrnet_ocr.py:347-394). Returns [B, 15 * width, H/4, W/4]."""
-        x = torch.relu(self.bn1(self.conv1(x)))
-        x = torch.relu(self.bn2(self.conv2(x)))
+        x = self.bn1(self.conv1(x), relu=True)
+        x = self.bn2(self.conv2(x), relu=True)
         xs = [self.layer1(x)]
         for s in (1, 2, 3):
             xs = _apply_transition(getattr(self, f'transition{s}'), xs)

@@ -66,7 +66,7 @@ class S2MBackbone(nn.Module):
         self.layer4 = dilated_layer(base * 4 * e, base * 8, 3, 1, 1, 2)
 
     def forward(self, x):
-        x = XF.max_pool(torch.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        x = XF.max_pool(self.bn1(self.conv1(x), relu=True), 3, 2, 1)
         low = self.layer1(x)
         return low, self.layer4(self.layer3(self.layer2(low)))
 

@@ -7,10 +7,13 @@ Submodule names follow the reference state dict, e.g.
 encoder names its layer1 `res2` (reference modules.py:162).
 """
 
+from typing import Optional
+
 import torch
 from torch import nn
 
 from xmem2_tpu_torch.nn import functional as XF
+from xmem2_tpu_torch.ops.bn_epilogue import bn_epilogue
 
 
 def to_compute_dtype(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -33,7 +36,9 @@ class Conv2d(nn.Conv2d):
 class BatchNorm2d(nn.Module):
     """Frozen inference batch norm, computed in float32. Holds the reference
     state-dict names (weight, bias, running_mean, running_var); the
-    checkpoint's num_batches_tracked counters are dropped on load."""
+    checkpoint's num_batches_tracked counters are dropped on load. A call
+    may add a residual and apply a ReLU after the norm: one pass on the card
+    (ops/bn_epilogue.py)."""
 
     def __init__(self, c: int):
         super().__init__()
@@ -42,9 +47,10 @@ class BatchNorm2d(nn.Module):
         self.register_buffer('running_mean', torch.zeros(c))
         self.register_buffer('running_var', torch.ones(c))
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return XF.batch_norm(x, self.weight, self.bias, self.running_mean,
-                             self.running_var)
+    def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None,
+                relu: bool = False) -> torch.Tensor:
+        return bn_epilogue(x, self.weight, self.bias, self.running_mean,
+                           self.running_var, residual, relu)
 
 
 def conv3x3(cin, cout, stride=1):
@@ -67,10 +73,9 @@ class BasicBlock(nn.Module):
                 BatchNorm2d(cout))
 
     def forward(self, x):
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = self.bn2(self.conv2(out))
+        out = self.bn1(self.conv1(x), relu=True)
         residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(out + residual)
+        return self.bn2(self.conv2(out), residual, relu=True)
 
 
 class Bottleneck(nn.Module):
@@ -95,11 +100,10 @@ class Bottleneck(nn.Module):
                 BatchNorm2d(cout))
 
     def forward(self, x):
-        out = torch.relu(self.bn1(self.conv1(x)))
-        out = torch.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+        out = self.bn1(self.conv1(x), relu=True)
+        out = self.bn2(self.conv2(out), relu=True)
         residual = x if self.downsample is None else self.downsample(x)
-        return torch.relu(out + residual)
+        return self.bn3(self.conv3(out), residual, relu=True)
 
 
 def cast_weights(model: nn.Module, dtype: torch.dtype) -> nn.Module:
@@ -131,7 +135,7 @@ class Stem(nn.Module):
         self.bn1 = BatchNorm2d(64)
 
     def stem(self, x):
-        return XF.max_pool(torch.relu(self.bn1(self.conv1(x))), 3, 2, 1)
+        return XF.max_pool(self.bn1(self.conv1(x), relu=True), 3, 2, 1)
 
 
 class ResNet50Trunk(Stem):

@@ -4,7 +4,9 @@ Each `csrc/<name>.cu` has a plain C interface and is compiled by `nvcc` for
 Hopper (`sm_90a`) into its own shared library, loaded with `ctypes`. Builds go
 to `build/` at the repository root, keyed by a hash of the source and the
 flags, at first use: a fresh checkout builds everything on its first kernel
-call (seconds per file). Nothing here runs at import time.
+call (seconds per file). Nothing here runs at import time. The wrappers hand
+tensors to a launch through ptr, stream and check_cuda, and raise_on turns
+its return code into an exception.
 """
 
 import ctypes
@@ -15,6 +17,8 @@ import subprocess
 import tempfile
 from pathlib import Path
 from typing import Dict, Iterable
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / 'csrc'
 BUILD_DIR = Path(__file__).resolve().parents[2] / 'build'
@@ -86,3 +90,29 @@ def library(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_target(name)))
         _loaded[name] = lib
     return lib
+
+
+def ptr(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())
+
+
+def stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def check_cuda(name: str, device: torch.device, **tensors):
+    """Device, dtype and contiguity checks before a raw pointer is handed to
+    a kernel."""
+    for key, (t, dtype) in tensors.items():
+        if t.device != device:
+            raise ValueError(f'{name}: {key} is on {t.device}, expected {device}')
+        if t.dtype not in dtype:
+            raise TypeError(f'{name}: {key} has dtype {t.dtype}, expected '
+                            f'one of {dtype}')
+        if not t.is_contiguous():
+            raise ValueError(f'{name}: {key} must be contiguous')
+
+
+def raise_on(rc: int, name: str):
+    if rc != 0:
+        raise RuntimeError(f'{name}: kernel launch failed with CUDA error {rc}')

@@ -48,6 +48,7 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from xmem2_tpu_torch.ops import cuda_build
+from xmem2_tpu_torch.ops.cuda_build import check_cuda, ptr, raise_on, stream
 from xmem2_tpu_torch.ops.similarity import (
     NEG_INF, get_similarity_padded, top_k_values)
 from xmem2_tpu_torch.utils.profiling import count
@@ -60,32 +61,6 @@ K1_TABLE_CHUNKS = 16  # object chunks one K1 launch takes (its table is a
 
 def _round_up(x: int, m: int) -> int:
     return (x + m - 1) // m * m
-
-
-def _ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
-
-
-def _stream(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
-
-
-def _check_cuda(name: str, device: torch.device, **tensors):
-    """Device, dtype and contiguity checks before a raw pointer is handed to
-    a kernel."""
-    for key, (t, dtype) in tensors.items():
-        if t.device != device:
-            raise ValueError(f'{name}: {key} is on {t.device}, expected {device}')
-        if t.dtype not in dtype:
-            raise TypeError(f'{name}: {key} has dtype {t.dtype}, expected '
-                            f'one of {dtype}')
-        if not t.is_contiguous():
-            raise ValueError(f'{name}: {key} must be contiguous')
-
-
-def _raise_on(rc: int, name: str):
-    if rc != 0:
-        raise RuntimeError(f'{name}: kernel launch failed with CUDA error {rc}')
 
 
 def plan_group_width(g: int) -> int:
@@ -175,7 +150,7 @@ def block_topk_candidates(sim: torch.Tensor, valid: Optional[torch.Tensor],
     tensors = dict(sim=(sim, (torch.float32,)))
     if valid is not None:
         tensors['valid'] = (valid, (torch.bool,))
-    _check_cuda('block_topk_candidates', sim.device, **tensors)
+    check_cuda('block_topk_candidates', sim.device, **tensors)
     g, p, n = _k2_inputs(sim, valid)
     vals = torch.empty((g, p, k), dtype=torch.float32, device=sim.device)
     kcnt = torch.empty((g, p), dtype=torch.int32, device=sim.device)
@@ -187,11 +162,11 @@ def block_topk_candidates(sim: torch.Tensor, valid: Optional[torch.Tensor],
     # grouped mode: one group a CTA row; shared: chunks of plan_group_width
     width = 1 if valid is None else plan_group_width(g)
     rc = fn(
-        _ptr(sim), ctypes.c_longlong(0 if valid is not None else p * n),
-        None if valid is None else _ptr(valid), _ptr(vals), _ptr(kcnt),
+        ptr(sim), ctypes.c_longlong(0 if valid is not None else p * n),
+        None if valid is None else ptr(valid), ptr(vals), ptr(kcnt),
         ctypes.c_int(p), ctypes.c_int(n), ctypes.c_int(g), ctypes.c_int(k),
-        ctypes.c_int(width), _stream(sim))
-    _raise_on(rc, 'block_topk_candidates')
+        ctypes.c_int(width), stream(sim))
+    raise_on(rc, 'block_topk_candidates')
     count('kernel.block_topk_candidates')
     return vals, kcnt
 
@@ -373,10 +348,10 @@ def topk_readout(sim: torch.Tensor, values: torch.Tensor, valid: torch.Tensor,
         return topk_readout_plain(sim, values, valid, tau, rmax, invz,
                                   group_ids)
     f32 = (torch.float32,)
-    _check_cuda('topk_readout', sim.device, sim=(sim, f32),
-                values=(values, (torch.float32, torch.bfloat16)),
-                valid=(valid, (torch.bool,)), tau=(tau, f32),
-                rmax=(rmax, f32), invz=(invz, f32))
+    check_cuda('topk_readout', sim.device, sim=(sim, f32),
+               values=(values, (torch.float32, torch.bfloat16)),
+               valid=(valid, (torch.bool,)), tau=(tau, f32),
+               rmax=(rmax, f32), invz=(invz, f32))
     p, n = sim.shape
     o, nv, cv = values.shape
     g = valid.shape[0]
@@ -402,13 +377,13 @@ def topk_readout(sim: torch.Tensor, values: torch.Tensor, valid: torch.Tensor,
         part = plan[c0:c0 + K1_TABLE_CHUNKS]
         chunks, local = _k1_table(part, group_ids)
         rc = fn(
-            _ptr(sim), _ptr(values),
-            ctypes.c_int(values.dtype == torch.bfloat16), _ptr(valid),
-            _ptr(tau), _ptr(rmax), _ptr(invz), chunks, local,
-            ctypes.c_int(len(part)), _ptr(out),
+            ptr(sim), ptr(values),
+            ctypes.c_int(values.dtype == torch.bfloat16), ptr(valid),
+            ptr(tau), ptr(rmax), ptr(invz), chunks, local,
+            ctypes.c_int(len(part)), ptr(out),
             ctypes.c_int(p), ctypes.c_int(n), ctypes.c_int(cv),
-            ctypes.c_int(g), _stream(sim))
-        _raise_on(rc, 'topk_readout')
+            ctypes.c_int(g), stream(sim))
+        raise_on(rc, 'topk_readout')
         count('kernel.topk_readout')
     return out
 
@@ -437,9 +412,9 @@ def topk_usage(sim: torch.Tensor, valid: torch.Tensor, tau: torch.Tensor,
     if sim.device.type == 'cpu':
         return topk_usage_plain(sim, valid, tau, rmax, invz)
     f32 = (torch.float32,)
-    _check_cuda('topk_usage', sim.device, sim=(sim, f32),
-                valid=(valid, (torch.bool,)), tau=(tau, f32),
-                rmax=(rmax, f32), invz=(invz, f32))
+    check_cuda('topk_usage', sim.device, sim=(sim, f32),
+               valid=(valid, (torch.bool,)), tau=(tau, f32),
+               rmax=(rmax, f32), invz=(invz, f32))
     p, n = sim.shape
     g = valid.shape[0]
     if valid.shape[1] != n or tau.shape != (p, g) or rmax.shape != (p, g) \
@@ -448,10 +423,10 @@ def topk_usage(sim: torch.Tensor, valid: torch.Tensor, tau: torch.Tensor,
     usage = torch.empty((n,), dtype=torch.float32, device=sim.device)
     lib = cuda_build.library('topk_readout')
     lib.topk_usage_launch.restype = ctypes.c_int
-    rc = lib.topk_usage_launch(_ptr(sim), _ptr(valid), _ptr(tau), _ptr(rmax),
-                               _ptr(invz), _ptr(usage), ctypes.c_int(p),
-                               ctypes.c_int(n), ctypes.c_int(g), _stream(sim))
-    _raise_on(rc, 'topk_usage')
+    rc = lib.topk_usage_launch(ptr(sim), ptr(valid), ptr(tau), ptr(rmax),
+                               ptr(invz), ptr(usage), ctypes.c_int(p),
+                               ctypes.c_int(n), ctypes.c_int(g), stream(sim))
+    raise_on(rc, 'topk_usage')
     count('kernel.topk_usage')
     return usage
 

@@ -73,8 +73,10 @@ def train_forward(net: XMem, frames, first_frame_gt, selector, cls_gt,
     [B, T, H, W] class indices. Returns the loss dict of compute_losses."""
     b, t = frames.shape[:2]
     num_objects = first_frame_gt.shape[2]
+    # contiguous: frames may be a channels-last view of [B, T, H, W, 3]
+    # data, and the trunk's batch norms take NCHW activations
     key, shrinkage, selection, f16, f8, f4 = net.encode_key(
-        frames.flatten(0, 1))
+        frames.flatten(0, 1).contiguous())
 
     def unflat(x):
         return x.reshape((b, t) + x.shape[1:])
