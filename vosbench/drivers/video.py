@@ -10,8 +10,9 @@ operation ran on the card over every frame written in the window. With
 --trace 1 the same window gives the host's frames/s (every frame written
 over the time from the first call's start to the last call's end), and
 then one more whole video runs under the profiler, with the ranges that
-the cell's metric readers declare. Then one finished video, drawn from the
-seed, is run again by the plain reference and compared.
+the cell's metric readers declare and the program's own spans. Then one
+finished video, drawn from the seed, is run again by the plain reference
+and compared.
 
 A reader's read(trace, run) gets the Trace of the profiled video and the
 run's facts: `frames` (written in the profiled video), `window_frames` and

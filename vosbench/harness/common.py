@@ -8,7 +8,7 @@ import json
 import os
 import sys
 from pathlib import Path
-from typing import Dict, List
+from typing import Dict, List, Optional
 
 ROOT = Path(__file__).resolve().parents[2]      # the checkout
 BENCH = Path(__file__).resolve().parents[1]     # vosbench/
@@ -36,6 +36,15 @@ def load_json(path: Path) -> dict:
         return json.load(f)
 
 
+def cells(driver: Optional[str] = None) -> List[str]:
+    """The names of BENCHMARK.json's cells; with a driver, only those whose
+    traffic file names it."""
+    bench = load_json(ROOT / 'BENCHMARK.json')
+    return [w['name'] for w in bench['workloads'] if driver is None
+            or load_json(BENCH / 'workloads' / f'{w["traffic"]}.json')
+            .get('driver') == driver]
+
+
 class Cell:
     """One cell's pieces, found by name: its BENCHMARK.json entry, its
     traffic file, its configuration file, its driver and its metrics."""
@@ -55,6 +64,9 @@ class Cell:
                           f'{self.traffic.get("config")!r}, BENCHMARK.json '
                           f'{self.entry["config"]!r}')
         cfg = [c for c in bench['configs'] if c['name'] == self.entry['config']]
+        if not cfg:
+            raise Refused(f'{name}: no configuration '
+                          f'{self.entry["config"]!r} in BENCHMARK.json')
         self.config = load_json(ROOT / cfg[0]['file'])
         self.end_to_end = [m for m in bench['end_to_end']
                            if name in m.get('workloads', [name])]
@@ -67,7 +79,7 @@ class Cell:
     def readers(self) -> Dict[str, object]:
         """The per-layer metrics' readers: vosbench/metrics/<name>.py, each
         with read(trace, run) -> a number, or None where it finds nothing
-        to read, and optionally RANGES (harness/trace.py)."""
+        to read, and optionally RANGES and SPANS (harness/trace.py)."""
         return {m['name']: load_module(BENCH / 'metrics' / f'{m["name"]}.py')
                 for m in self.per_layer}
 

@@ -7,9 +7,13 @@ window) and returns, for every span name: its host seconds, its self
 device seconds (the kernels, copies and memsets whose launching runtime
 call lies innermost in a span of that name) and the device-idle seconds
 inside it; the longest idle gaps, each named by the innermost span at its
-middle, found by interval search over the whole trace; the share of the
-device time launched outside every span; and the device seconds of each
-of the longest operations by the span that launched them.
+middle, found by interval search over the whole trace (where no span is
+open there, by the innermost host operation or benchmark range); the
+share of the device time launched outside every span; the longest
+operations keyed '<innermost span>:<operation>'; the kernels launched;
+and, for each benchmark range named, the device seconds of the kernels
+launched inside it. harness/trace.py read() keeps what the per-layer
+metrics read of it.
 
 Where the program opens no spans (a program from before they existed)
 everything falls under OUTSIDE.
@@ -18,8 +22,9 @@ everything falls under OUTSIDE.
 import bisect
 from typing import Dict, List, Optional, Tuple
 
-from vosbench.harness.trace import DEVICE_OPS, WINDOW
-
+WINDOW = 'vosbench.window'
+# the profiler's activity types of operations that run on the card
+DEVICE_OPS = ('kernel', 'gpu_memcpy', 'gpu_memset')
 PREFIX = 'xmem.'
 OUTSIDE = '(outside every span)'
 UNLAUNCHED = '(no launch recorded)'
@@ -60,7 +65,7 @@ class _Innermost:
         return seg[1][i] if i >= 0 else None
 
 
-def _merge(intervals):
+def union(intervals):
     """(start, end) intervals -> their union as sorted disjoint ones."""
     out = []
     for s, e in sorted(intervals):
@@ -83,14 +88,38 @@ def _busy_within(merged, cum, s, e) -> float:
     return upto(e) - upto(s)
 
 
-def report(events, prefix: str = PREFIX, top: int = 10) -> dict:
-    """What the program's spans say of the window's card time (seconds)."""
+def window_bounds(events) -> Tuple[float, float]:
+    """Start and end (us) of the trace's WINDOW range."""
     win = [e for e in events if e.get('name') == WINDOW
            and e.get('cat') == 'user_annotation']
     if not win:
         raise RuntimeError('the trace has no window range')
-    w0, w1 = win[0]['ts'], win[0]['ts'] + win[0]['dur']
-    spans, launches, device = {}, {}, []
+    return win[0]['ts'], win[0]['ts'] + win[0]['dur']
+
+
+def matches(name: str, names) -> bool:
+    """Whether a span name is one of names: exact names, or prefixes
+    ending in '.'."""
+    return any(name == m or (m.endswith('.') and name.startswith(m))
+               for m in names)
+
+
+def _inside(intervals, t) -> bool:
+    """Whether t lies in the last of the sorted (start, end) intervals that
+    starts at or before it."""
+    i = bisect.bisect_right(intervals, (t, float('inf'))) - 1
+    return i >= 0 and intervals[i][0] <= t <= intervals[i][1]
+
+
+def report(events, prefix: str = PREFIX, top: int = 10,
+           ranges=()) -> dict:
+    """What the program's spans say of the window's card time (seconds);
+    ranges: names of benchmark ranges (harness/trace.py ranges) whose
+    kernels' device seconds to count, a kernel belonging to a range when
+    its launch lies inside one of that name on any thread."""
+    w0, w1 = window_bounds(events)
+    spans, others, launches, device = {}, {}, {}, []
+    rng = {n: [] for n in ranges}
     for e in events:
         if e.get('ph') != 'X':
             continue
@@ -102,19 +131,21 @@ def report(events, prefix: str = PREFIX, top: int = 10) -> dict:
             c = e.get('args', {}).get('correlation')
             if c is not None:
                 launches[c] = (e.get('tid'), e['ts'])
-        elif cat in ('cpu_op', 'user_annotation') \
-                and e['name'].startswith(prefix):
-            spans.setdefault(e.get('tid'), []).append(
-                (e['ts'], e['ts'] + e['dur'], e['name']))
+        elif cat in ('cpu_op', 'user_annotation') and e['name'] != WINDOW:
+            (spans if e['name'].startswith(prefix) else others).setdefault(
+                e.get('tid'), []).append(
+                    (e['ts'], e['ts'] + e['dur'], e['name']))
+            if e['name'] in rng:
+                rng[e['name']].append((e['ts'], e['ts'] + e['dur']))
+    rng = {n: sorted(iv) for n, iv in rng.items()}
     inner = _Innermost(spans)
-    merged = _merge([(d['ts'], d['ts'] + d['dur']) for d in device])
+    merged = union([(d['ts'], d['ts'] + d['dur']) for d in device])
     cum = [0.0]
     for b0, b1 in merged:
         cum.append(cum[-1] + b1 - b0)
     busy = cum[-1]
     gaps = list(zip([b1 for _, b1 in merged[:-1]],
                     [b0 for b0, _ in merged[1:]]))
-
 
     def idle_in(s, e):
         a, b = max(s, w0), min(e, w1)
@@ -129,22 +160,29 @@ def report(events, prefix: str = PREFIX, top: int = 10) -> dict:
             out[n]['host_s'] += (e - s) / 1e6
             out[n]['count'] += 1
             out[n]['idle_s'] += idle_in(s, e)
-    ops: Dict[str, Dict[str, float]] = {}
-    op_total: Dict[str, float] = {}
+    span_ops: Dict[str, float] = {}
+    range_s = dict.fromkeys(rng, 0.0)
+    kernels = 0
     for d in device:
         at = launches.get(d.get('args', {}).get('correlation'))
         label = UNLAUNCHED if at is None else (inner.at(*at) or OUTSIDE)
-        out[label]['self_device_s'] += d['dur'] / 1e6
-        by = ops.setdefault(d['name'], {})
-        by[label] = by.get(label, 0.0) + d['dur'] / 1e6
-        op_total[d['name']] = op_total.get(d['name'], 0.0) + d['dur'] / 1e6
-    main = _main_thread(spans)
+        s = d['dur'] / 1e6
+        out[label]['self_device_s'] += s
+        key = f'{label}:{d["name"]}'
+        span_ops[key] = span_ops.get(key, 0.0) + s
+        if d['cat'] == 'kernel':
+            kernels += 1
+            for n, iv in rng.items():
+                if at is not None and _inside(iv, at[1]):
+                    range_s[n] += s
+    main = _main_thread(spans) or _main_thread(others)
     idle = (w1 - w0 - busy) / 1e6
     outside_loop = idle - sum(idle_in(s, e) for s, e, n
                               in spans.get(main, []) if n == prefix + 'loop')
-    device_s = sum(op_total.values())
+    device_s = sum(d['dur'] for d in device) / 1e6
     return {
         'window_s': (w1 - w0) / 1e6, 'busy_s': busy / 1e6, 'idle_s': idle,
+        'launches': kernels, 'range_device_s': range_s,
         'idle_outside_loop_s': outside_loop,
         'device_s': device_s,
         'outside_share': (out[OUTSIDE]['self_device_s']
@@ -152,11 +190,10 @@ def report(events, prefix: str = PREFIX, top: int = 10) -> dict:
         / device_s if device_s else None,
         'spans': {n: v for n, v in out.items() if v['count']
                   or v['self_device_s']},
-        'idle_gaps': _label_gaps(gaps, inner, main, top),
-        'ops_by_span': [[n, op_total[n], sorted(ops[n].items(),
-                                                key=lambda kv: -kv[1])]
-                        for n in sorted(op_total, key=lambda n: -op_total[n])
-                        [:top]],
+        'idle_gaps': _label_gaps(gaps, inner, _Innermost(others), main,
+                                 top),
+        'span_ops': sorted(([k, v] for k, v in span_ops.items()),
+                           key=lambda kv: -kv[1])[:top],
     }
 
 
@@ -167,20 +204,14 @@ def _main_thread(spans) -> Optional[int]:
     return max(spans, key=lambda t: sum(e - s for s, e, _ in spans[t]))
 
 
-def _label_gaps(gaps, inner: _Innermost, tid, top: int
+def _label_gaps(gaps, inner: _Innermost, host: _Innermost, tid, top: int
                 ) -> List[Tuple[str, float]]:
     """The longest idle gaps, each named by the innermost span of the
-    calling thread at its middle (OUTSIDE where none is open)."""
+    calling thread at its middle; where none is open, by its innermost
+    host operation or benchmark range there; OUTSIDE where none is."""
     out = []
     for s, e in sorted(gaps, key=lambda g: g[0] - g[1])[:top]:
-        out.append((inner.at(tid, (s + e) / 2) or OUTSIDE, (e - s) / 1e6))
+        mid = (s + e) / 2
+        out.append((inner.at(tid, mid) or host.at(tid, mid) or OUTSIDE,
+                    (e - s) / 1e6))
     return out
-
-
-def per_frame_ms(rep: dict, names, frames: float) -> Optional[float]:
-    """Self device milliseconds a frame of the spans named (exact names,
-    or prefixes ending in '.')."""
-    s = sum(v['self_device_s'] for n, v in rep['spans'].items()
-            if any(n == m or (m.endswith('.') and n.startswith(m))
-                   for m in names))
-    return 1e3 * s / frames if frames else None

@@ -6,17 +6,20 @@ seconds in which a kernel, copy or memset ran on the card.
 
 window: the traced video of a --trace 1 run, torch.profiler over the host
 and the card, with named ranges around calls into the program's layers,
-read back from the profiler's Chrome trace into what the per-layer
-metrics read.
+read back from the profiler's Chrome trace by harness/spans.py report()
+in one pass into what the per-layer metrics read: the card's time,
+launches, operations and idle gaps by the program's spans, the declared
+ranges' kernels, and each span's own times.
 
-A metric's reader declares the ranges it reads in RANGES, {range name:
-'module:Class.method'}; the driver wraps each such method in a range of
-that name for the window. A kernel belongs to a range when the host call
-that launched it (the CUDA runtime event with the kernel's correlation id)
-lies inside that range.
+A metric's reader declares what it reads: in RANGES, {range name:
+'module:Class.method'}, ranges that the driver wraps around each such
+method for the window (a kernel belongs to a range when the host call
+that launched it, the CUDA runtime event with the kernel's correlation
+id, lies inside that range); in SPANS, names of the program's spans, or
+prefixes ending in '.', which it reads from Trace.spans
+(Trace.span_ms_per_frame).
 """
 
-import bisect
 import contextlib
 import importlib
 import json
@@ -24,9 +27,7 @@ import os
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Tuple
 
-WINDOW = 'vosbench.window'
-# the profiler's activity types of operations that run on the card
-DEVICE_OPS = ('kernel', 'gpu_memcpy', 'gpu_memset')
+from vosbench.harness.spans import DEVICE_OPS, WINDOW, matches, report, union
 
 
 @dataclass
@@ -36,11 +37,22 @@ class Trace:
     launches: int = 0
     # device seconds of the kernels launched inside each declared range
     range_device_s: Dict[str, float] = field(default_factory=dict)
-    # every device operation's name (kernels, copies, memsets): its device
-    # seconds, and how many times it ran
-    op_s: Dict[str, float] = field(default_factory=dict)
-    op_count: Dict[str, int] = field(default_factory=dict)
+    # the longest idle gaps and device operations, by the program's spans
     idle_gaps: List[Tuple[str, float]] = field(default_factory=list)
+    span_ops: List[Tuple[str, float]] = field(default_factory=list)
+    # each span name's host_s, count, self_device_s and idle_s
+    # (harness/spans.py report)
+    spans: Dict[str, dict] = field(default_factory=dict)
+
+    def span_ms_per_frame(self, names, frames) -> Optional[float]:
+        """Self device milliseconds a frame of the spans named (exact
+        names, or prefixes ending in '.'); None where the trace holds none
+        of them or no frame was written."""
+        hit = [v['self_device_s'] for n, v in self.spans.items()
+               if matches(n, names)]
+        if not hit or not frames:
+            return None
+        return 1e3 * sum(hit) / frames
 
 
 def declared_ranges(readers) -> Dict[str, str]:
@@ -147,97 +159,50 @@ def device_busy(events) -> Tuple[Optional[float], int, Dict[str, int]]:
         spans.append((s, s + d))
     if not spans:
         return None, 0, kinds
-    return _union(spans)[0] / 1e9, len(spans), kinds
-
-
-def _union(intervals):
-    """Total length of a union of (start, end) intervals, and the gaps
-    between them as (start, end)."""
-    total, gaps = 0.0, []
-    cur_s = cur_e = None
-    for s, e in sorted(intervals):
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                total += cur_e - cur_s
-                gaps.append((cur_e, s))
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        total += cur_e - cur_s
-    return total, gaps
+    return sum(e - s for s, e in union(spans)) / 1e9, len(spans), kinds
 
 
 def read(path: str, range_names) -> Trace:
-    """The trace at path as a Trace over its WINDOW range."""
+    """The trace at path as a Trace over its WINDOW range: what
+    harness/spans.py report() reads of its events, with the declared
+    ranges' kernels among them."""
     with open(path) as f:
         events = json.load(f)['traceEvents']
-    win = [e for e in events if e.get('name') == WINDOW
-           and e.get('cat') == 'user_annotation']
-    if not win:
-        raise RuntimeError('the trace has no window range')
-    w0, w1 = win[0]['ts'], win[0]['ts'] + win[0]['dur']
-    device, launch_ts, rng, host = [], {}, {n: [] for n in range_names}, []
-    for e in events:
-        cat = e.get('cat')
-        if e.get('ph') != 'X':
-            continue
-        if cat in ('kernel', 'gpu_memcpy', 'gpu_memset'):
-            device.append(e)
-        elif cat in ('cuda_runtime', 'cuda_driver'):
-            c = e.get('args', {}).get('correlation')
-            if c is not None:
-                launch_ts[c] = e['ts']
-        elif cat in ('cpu_op', 'user_annotation') and e['name'] != WINDOW:
-            host.append((e['ts'], e['ts'] + e['dur'], e['name']))
-            if e['name'] in rng:
-                rng[e['name']].append((e['ts'], e['ts'] + e['dur']))
-    device = [e for e in device if w0 <= e['ts'] and e['ts'] + e['dur'] <= w1]
-    if not device:
-        raise RuntimeError('the profiler recorded no device activity')
-    t = Trace(window_s=(w1 - w0) / 1e6)
-    busy, gaps = _union([(e['ts'], e['ts'] + e['dur']) for e in device])
-    t.busy_s = busy / 1e6
-    kernels = [e for e in device if e.get('cat') == 'kernel']
-    t.launches = len(kernels)
-    starts = {n: sorted(v) for n, v in rng.items()}
-    t.range_device_s = dict.fromkeys(starts, 0.0)
-    for k in kernels:
-        ts = launch_ts.get(k.get('args', {}).get('correlation'))
-        if ts is None:
-            continue
-        for n, iv in starts.items():
-            i = bisect.bisect_right(iv, (ts, float('inf'))) - 1
-            if i >= 0 and iv[i][0] <= ts <= iv[i][1]:
-                t.range_device_s[n] += k['dur'] / 1e6
-    for k in device:
-        t.op_s[k['name']] = t.op_s.get(k['name'], 0.0) + k['dur'] / 1e6
-        t.op_count[k['name']] = t.op_count.get(k['name'], 0) + 1
-    t.idle_gaps = _label_gaps(gaps, host)
     os.unlink(path)
-    return t
+    rep = report(events, ranges=range_names)
+    if not rep['busy_s']:
+        raise RuntimeError('the profiler recorded no device activity')
+    return Trace(window_s=rep['window_s'], busy_s=rep['busy_s'],
+                 launches=rep['launches'],
+                 range_device_s=rep['range_device_s'],
+                 idle_gaps=rep['idle_gaps'], span_ops=rep['span_ops'],
+                 spans=rep['spans'])
 
 
-def _label_gaps(gaps, host, top: int = 10):
-    """The longest idle gaps, each named by the innermost host operation
-    or benchmark range running at its middle ('host (no operation)':
-    Python outside every operation and range, such as the frame loop of
-    run_on_video)."""
-    host.sort()
-    starts = [h[0] for h in host]
+# the ledger keeps the first 64 characters of a breakdown name
+LEDGER_NAME = 64
+
+
+def _apart(keys: List[str], width: int = LEDGER_NAME) -> List[str]:
+    """Each key; one that shares its first width characters with another
+    (cuDNN's kernels differ only in their tile sizes, far into the name)
+    keeps its first half-width characters, then '~', then the rest from
+    eight characters before it departs from the other, so that cut to
+    width the two read apart."""
     out = []
-    for s, e in sorted(gaps, key=lambda g: g[0] - g[1])[:top]:
-        mid = (s + e) / 2
-        i = bisect.bisect_right(starts, mid)
-        name, best = 'host (no operation)', None
-        for h in host[max(0, i - 2000):i]:
-            if h[0] <= mid <= h[1] and (best is None or h[1] - h[0] < best):
-                name, best = h[2], h[1] - h[0]
-        out.append((name, (e - s) / 1e6))
+    for k in keys:
+        common = max((len(os.path.commonprefix([k, j])) for j in keys
+                      if j != k), default=0)
+        out.append(k if common < width else
+                   k[:width // 2 - 1] + '~' + k[common - 8:])
     return out
 
 
 def breakdown(t: Trace) -> dict:
-    top = sorted(t.op_s.items(), key=lambda kv: -kv[1])[:10]
-    return {'device_ops': [[n, s] for n, s in top],
+    """The longest device operations, keyed '<innermost span>:<operation>'
+    so that one operation launched from two layers reads as two (and kept
+    apart within the ledger's width), and the longest idle gaps by what the
+    host was doing."""
+    keys = _apart([n for n, _ in t.span_ops])
+    return {'device_ops': [[k, s] for k, (_, s) in zip(keys, t.span_ops)],
             'idle_gaps': [[n, s] for n, s in t.idle_gaps]}

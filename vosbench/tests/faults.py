@@ -1,6 +1,8 @@
-"""Faults planted in the program under a video cell's timed path, which
-the check has to catch (one card: no exchange between cards to leave out).
-Each is a context manager that patches the program and restores it."""
+"""Faults planted in the program under the timed path of a cell of the
+video driver (drivers/video.py: run_on_video, XMem's frame step and
+memory), which the check has to catch (one card: no exchange between
+cards to leave out). Each is a context manager that patches the program
+and restores it. A cell of another driver plants its own faults."""
 
 import contextlib
 

@@ -1,9 +1,10 @@
-"""The readings a video cell's limit is set from, on the card at the cell's
-own size: for each seed, the program over one whole video against the
-float32 reference (the lower reading), and for the first seeds the
-control, the reference itself in float8 in the program's place (the upper
-reading), and the program with each planted fault (tests/faults.py). One
-process for all seeds, since set-up is most of a run.
+"""The readings that the limit of a cell of the video driver
+(drivers/video.py) is set from, on the card at the cell's own size: for
+each seed, the program over one whole video against the float32 reference
+(the lower reading), and for the first seeds the control, the reference
+itself in float8 in the program's place (the upper reading), and the
+program with each planted fault (tests/faults.py). One process for all
+seeds, since set-up is most of a run.
 
     python3 vosbench/tests/readings.py --workload vos480-2obj \
         --seeds 11,12,13 --control 3

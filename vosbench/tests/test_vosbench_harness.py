@@ -1,7 +1,10 @@
 """CPU tests of the benchmark harness: its files found by name, what its
-processes load, the work counts, the refusal without a card."""
+processes load, the work counts, the refusal without a card, and a new
+configuration joining by new files and appended entries alone."""
 
 import json
+import re
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -33,6 +36,110 @@ def test_every_config_file_is_used_and_named():
         data = json.loads((ROOT / c['file']).read_text())
         assert data['name'] == c['name']
         assert data['reduced'] == c['reduced']
+
+
+def _missing_rehearsals() -> list:
+    """The rehearsal files that the drivers some cell names lack:
+    vosbench/tests/test_vosbench_<driver>.py, a tiny cut of the driver's
+    cells on the CPU against its reference, with its own planted faults."""
+    drivers = {common.Cell(c).traffic['driver'] for c in common.cells()}
+    return sorted(f'test_vosbench_{d}.py' for d in drivers
+                  if not (common.BENCH / 'tests'
+                          / f'test_vosbench_{d}.py').exists())
+
+
+def test_every_driver_has_its_rehearsals():
+    assert _missing_rehearsals() == []
+
+
+def _append_cell(root: Path, name: str, driver: str, rehearsed: bool):
+    """Adds to the benchmark copy at root a configuration and a cell run by
+    driver, by new files and entries appended to BENCHMARK.json alone, and
+    the driver's rehearsal file where rehearsed."""
+    bench = root / 'vosbench'
+    entries = json.loads((root / 'BENCHMARK.json').read_text())
+    entries['configs'].append({
+        'name': f'{name}-net', 'source': f'https://example.org/{name}-net',
+        'file': f'vosbench/configs/{name}-net.json', 'reduced': [],
+        'why': f'a {driver} network'})
+    entries['workloads'].append({
+        'name': name, 'config': f'{name}-net', 'traffic': name, 'chips': 1,
+        'why': f'a {driver} cell'})
+    entries['per_layer'].append({
+        'name': f'step_ms_per_frame.{name}', 'unit': 'ms/frame',
+        'better': 'lower', 'source': 'program_span',
+        'layer': f'{driver} step', 'moves': 'device_ms_per_frame',
+        'workloads': [name]})
+    (root / 'BENCHMARK.json').write_text(json.dumps(entries))
+    (bench / 'configs' / f'{name}-net.json').write_text(json.dumps(
+        {'name': f'{name}-net', 'reduced': []}))
+    (bench / 'workloads' / f'{name}.json').write_text(json.dumps(
+        {'config': f'{name}-net', 'driver': driver}))
+    (bench / 'drivers' / f'{driver}.py').write_text(
+        'def run(cell, args, device, process_start):\n'
+        '    return {}, {}\n')
+    (bench / 'metrics' / f'step_ms_per_frame.{name}.py').write_text(
+        f'SPANS = ("{driver}.step",)\n\n\n'
+        'def read(trace, run):\n'
+        '    return trace.span_ms_per_frame(SPANS, run.frames)\n')
+    if rehearsed:
+        (bench / 'tests' / f'test_vosbench_{driver}.py').write_text('')
+
+
+@pytest.mark.parametrize('present', [(), ('other',)],
+                         ids=['video-only', 'with-another-driver'])
+def test_a_second_driver_joins_by_new_files_alone(tmp_path, monkeypatch,
+                                                  present):
+    """A copy of the benchmark, holding besides its own cells one of each
+    driver in present (with its rehearsals), to which a cell of a stub
+    driver is added by new files and entries appended to BENCHMARK.json:
+    its driver and readers load by name, it reports both end-to-end
+    metrics, the video driver's rehearsals leave it out as they leave out
+    the others, and the rehearsal guard asks for its file until it is
+    there."""
+    from vosbench.harness.trace import Trace
+    video_cells = common.cells('video')
+    shutil.copytree(common.BENCH, tmp_path / 'vosbench',
+                    ignore=shutil.ignore_patterns('__pycache__'))
+    (tmp_path / 'BENCHMARK.json').write_text(json.dumps(BENCH))
+    monkeypatch.setattr(common, 'ROOT', tmp_path)
+    monkeypatch.setattr(common, 'BENCH', tmp_path / 'vosbench')
+    for driver in present:
+        _append_cell(tmp_path, f'{driver}-cell', driver, rehearsed=True)
+    before = common.cells()
+    assert common.cells('video') == video_cells
+    assert _missing_rehearsals() == []
+
+    _append_cell(tmp_path, 'stub-cell', 'stub', rehearsed=False)
+    cell = common.Cell('stub-cell')
+    assert hasattr(cell.driver(), 'run')
+    assert [m['name'] for m in cell.end_to_end] == ['device_ms_per_frame',
+                                                    'setup_s']
+    readers = cell.readers()
+    assert set(readers) == {'step_ms_per_frame.stub-cell'}
+    tr = Trace(spans={'stub.step': {'self_device_s': 3e-3}})
+    run = type('Run', (), {'frames': 2.0})
+    assert readers['step_ms_per_frame.stub-cell'].read(tr, run) == \
+        pytest.approx(1.5)
+    assert readers['step_ms_per_frame.stub-cell'].read(Trace(), run) is None
+    assert common.cells() == before + ['stub-cell']
+    assert common.cells('video') == video_cells
+    assert common.cells('stub') == ['stub-cell']
+    for driver in present:
+        assert common.cells(driver) == [f'{driver}-cell']
+    assert _missing_rehearsals() == ['test_vosbench_stub.py']
+    (tmp_path / 'vosbench' / 'tests' / 'test_vosbench_stub.py').write_text('')
+    assert _missing_rehearsals() == []
+
+
+def test_a_cell_of_an_unknown_configuration_is_refused(tmp_path,
+                                                       monkeypatch):
+    entries = dict(BENCH)
+    entries['configs'] = []
+    (tmp_path / 'BENCHMARK.json').write_text(json.dumps(entries))
+    monkeypatch.setattr(common, 'ROOT', tmp_path)
+    with pytest.raises(common.Refused, match='no configuration'):
+        common.Cell(BENCH['workloads'][0]['name'])
 
 
 def _modules_after(code: str) -> set:
@@ -126,22 +233,41 @@ def test_weight_spec_is_the_checkpoint_format():
     assert dict(xmem_spec()) == port
 
 
+def _opened_spans() -> set:
+    """The span names that the port opens (annotate('...') in its
+    sources)."""
+    return {n for f in (ROOT / 'xmem2_tpu_torch').rglob('*.py')
+            for n in re.findall(r"""annotate\(\s*['"]([^'"]+)['"]""",
+                                f.read_text())}
+
+
 @pytest.mark.parametrize('cell', [w['name'] for w in BENCH['workloads']])
 def test_declared_ranges_resolve_to_the_program(cell):
-    """Every range a cell's readers declare names a method of the port."""
-    from vosbench.harness import trace
-    declared = trace.declared_ranges(common.Cell(cell).readers().values())
-    assert declared
+    """Every range a cell's readers declare names a method of the port,
+    every span they read (SPANS: names, or prefixes ending in '.') is one
+    the port opens, and the cell's readers declare one at least."""
+    from vosbench.harness import spans, trace
+    readers = common.Cell(cell).readers().values()
+    declared = trace.declared_ranges(readers)
+    read = {n for r in readers for n in getattr(r, 'SPANS', ())}
+    assert declared or read
     for target in declared.values():
         owner, attr = trace._resolve(target)
         assert callable(getattr(owner, attr))
+    opened = _opened_spans()
+    assert 'xmem.load' in opened and 'xmem.memory.append' in opened
+    for name in read:
+        assert any(spans.matches(o, [name]) for o in opened), name
 
 
 def test_trace_read_and_readers_on_a_written_trace(tmp_path):
     """A Chrome trace written by hand: two kernels launched inside a
-    range, one outside, a copy, and an idle gap; what Trace and the
+    range, one outside, a copy, and an idle gap, under the program's spans
+    (a call; in it a load and a memory append, each launching a kernel of
+    the range, and a preload launching the third); what Trace and the
     readers make of it."""
     import types
+    from vosbench.harness import spans as S
     from vosbench.harness import trace as T
 
     def x(cat, name, ts, dur, **args):
@@ -149,6 +275,10 @@ def test_trace_read_and_readers_on_a_written_trace(tmp_path):
                 'args': args}
     events = [
         x('user_annotation', T.WINDOW, 0, 1000),
+        x('user_annotation', 'xmem.call', 50, 900),
+        x('user_annotation', 'xmem.load', 105, 25),
+        x('user_annotation', 'xmem.memory.append', 140, 20),
+        x('user_annotation', 'xmem.preload', 295, 15),
         x('user_annotation', 'vosbench.segment', 100, 100),
         x('cuda_runtime', 'cudaLaunchKernel', 110, 5, correlation=1),
         x('cuda_runtime', 'cudaLaunchKernel', 150, 5, correlation=2),
@@ -160,15 +290,33 @@ def test_trace_read_and_readers_on_a_written_trace(tmp_path):
     path = tmp_path / 'trace.json'
     path.write_text(json.dumps({'traceEvents': events}))
     tr = T.read(str(path), {'vosbench.segment': 'unused'})
+    assert not path.exists()
     assert tr.window_s == 1e-3 and tr.launches == 3
     assert tr.busy_s == pytest.approx(350e-6)
     assert tr.range_device_s == {'vosbench.segment': pytest.approx(150e-6)}
-    assert tr.op_s == pytest.approx({'conv': 150e-6, 'add': 100e-6,
-                                     'Memcpy HtoD': 100e-6})
-    assert tr.op_count == {'conv': 2, 'add': 1, 'Memcpy HtoD': 1}
     assert [g for _, g in tr.idle_gaps] == pytest.approx([300e-6, 50e-6])
+    assert [n for n, _ in tr.idle_gaps] == ['xmem.call', 'xmem.call']
+    # the program's spans: report()'s own reading of the same events
+    rep = S.report(events, ranges=['vosbench.segment'])
+    assert tr.spans == rep['spans']
+    assert tr.range_device_s == rep['range_device_s']
+    assert {n: v['self_device_s'] for n, v in tr.spans.items()} == \
+        pytest.approx({'xmem.call': 0.0, 'xmem.load': 100e-6,
+                       'xmem.memory.append': 50e-6, 'xmem.preload': 100e-6,
+                       S.UNLAUNCHED: 100e-6})
+    assert T.breakdown(tr)['device_ops'] == [
+        ['xmem.load:conv', pytest.approx(100e-6)],
+        ['xmem.preload:add', pytest.approx(100e-6)],
+        [f'{S.UNLAUNCHED}:Memcpy HtoD', pytest.approx(100e-6)],
+        ['xmem.memory.append:conv', pytest.approx(50e-6)]]
     readers = common.Cell(BENCH['workloads'][0]['name']).readers()
     run = types.SimpleNamespace(frames=3.0)
+    # (100 + 100) us over 3 frames; 50 us over 3 frames
+    assert readers['load_ms_per_frame.call'].read(tr, run) == \
+        pytest.approx(0.2 / 3)
+    assert readers['memory_ms_per_frame.memory'].read(tr, run) == \
+        pytest.approx(0.05 / 3)
+    assert readers['load_ms_per_frame.call'].read(T.Trace(), run) is None
     assert readers['launches_per_frame.infer'].read(tr, run) == 1.0
     assert readers['device_idle_share.infer'].read(tr, run) == \
         pytest.approx(65.0)
@@ -179,6 +327,27 @@ def test_trace_read_and_readers_on_a_written_trace(tmp_path):
     assert readers['frames_per_s.host'].read(tr, run) == 25.0
     assert readers['frames_per_s.host'].read(
         tr, types.SimpleNamespace(window_frames=0.0, window_s=0.0)) is None
+
+
+def test_breakdown_names_stay_apart_within_the_ledgers_width():
+    """Operations of one span whose names part only past the ledger's 64
+    characters (cuDNN's convolutions by tile size) read apart cut to 64;
+    the others keep their names whole."""
+    from vosbench.harness import trace as T
+    conv = ('xmem.net.segment:sm90_xmma_fprop_implicit_gemm_bf16bf16_'
+            'bf16f32_f32_nhwckrsc_nhwc_tilesize{}_warpgroupsize1x1x1_g1_'
+            'execute_segment_k_off_kernel__5x_cudnn')
+    names = [conv.format('64x128x64'), 'xmem.load:Memcpy HtoD',
+             conv.format('128x128x64'), conv.format('256x128x64')]
+    tr = T.Trace(span_ops=[(n, 1e-3 * i) for i, n in enumerate(names)])
+    ops = T.breakdown(tr)['device_ops']
+    assert [s for _, s in ops] == [0.0, 1e-3, 2e-3, 3e-3]
+    assert ops[1][0] == 'xmem.load:Memcpy HtoD'
+    cut = [n[:T.LEDGER_NAME] for n, _ in ops]
+    assert len(set(cut)) == 4
+    assert cut[0] == ('xmem.net.segment:sm90_xmma_fpro~tilesize64x128x64_'
+                      'warpgroupsize1')
+    assert all(n.endswith('_cudnn') for n, _ in ops[::2])
 
 
 class _Event:

@@ -67,17 +67,40 @@ def test_spans_report_on_a_written_trace():
         'xmem.loop', S.OUTSIDE, 'xmem.call', S.OUTSIDE, 'xmem.frame']
     assert [g for _, g in rep['idle_gaps']] == pytest.approx(
         [490e-6, 320e-6, 190e-6, 90e-6, 80e-6])
-    pageable = [r for r in rep['ops_by_span']
-                if r[0] == 'Memcpy HtoD (Pageable)'][0]
-    assert pageable[2] == [('xmem.load', pytest.approx(50e-6))]
-    assert S.per_frame_ms(rep, ['xmem.load'], 2.0) == pytest.approx(0.025)
-    assert S.per_frame_ms(rep, ['xmem.net.', 'xmem.frame'], 2.0) == \
+    # each operation by the span that launched it: the pageable copy in
+    # the load, the adds in the frame, in the call and outside every span
+    assert rep['launches'] == 4
+    assert sorted(rep['span_ops'], key=lambda kv: kv[0]) == [
+        [f'{S.UNLAUNCHED}:Memset', pytest.approx(5e-6)],
+        [f'{S.OUTSIDE}:add', pytest.approx(10e-6)],
+        ['xmem.call:add', pytest.approx(20e-6)],
+        ['xmem.frame:add', pytest.approx(10e-6)],
+        ['xmem.load:Memcpy HtoD (Pageable)', pytest.approx(50e-6)],
+        ['xmem.net.segment:conv', pytest.approx(40e-6)]]
+    assert rep['span_ops'][:2] == [
+        ['xmem.load:Memcpy HtoD (Pageable)', pytest.approx(50e-6)],
+        ['xmem.net.segment:conv', pytest.approx(40e-6)]]
+    tr = T.Trace(spans=rep['spans'])
+    assert tr.span_ms_per_frame(['xmem.load'], 2.0) == pytest.approx(0.025)
+    assert tr.span_ms_per_frame(['xmem.net.', 'xmem.frame'], 2.0) == \
         pytest.approx(0.025)
+    assert tr.span_ms_per_frame(['xmem.none'], 2.0) is None
+
+
+def test_a_gap_outside_every_span_takes_the_host_operation():
+    """Where no span is open at a gap's middle, the gap is named by the
+    innermost host operation of the calling thread there."""
+    ev = _events() + [_x('cpu_op', 'aten::item', 1100, 150),
+                      _x('cpu_op', 'aten::_local_scalar_dense', 1120, 100)]
+    rep = S.report(ev)
+    assert [n for n, _ in rep['idle_gaps']] == [
+        'xmem.loop', 'aten::_local_scalar_dense', 'xmem.call', S.OUTSIDE,
+        'xmem.frame']
 
 
 def test_the_readers_trace_of_the_same_trace(tmp_path):
-    """What harness/trace.py gives the readers on this trace: the six
-    fields the existing metrics read, each worked out by hand."""
+    """What harness/trace.py gives the readers on this trace: the fields
+    the existing metrics and the breakdown read, each worked out by hand."""
     path = tmp_path / 'trace.json'
     path.write_text(json.dumps({'traceEvents': _events()}))
     tr = T.read(str(path), {'vosbench.segment': 'unused'})
@@ -85,11 +108,12 @@ def test_the_readers_trace_of_the_same_trace(tmp_path):
     assert tr.busy_s == pytest.approx(135e-6)
     assert tr.launches == 4
     assert tr.range_device_s == {'vosbench.segment': pytest.approx(40e-6)}
-    assert tr.op_s == pytest.approx({'Memcpy HtoD (Pageable)': 50e-6,
-                                     'conv': 40e-6, 'add': 40e-6,
-                                     'Memset': 5e-6})
-    assert tr.op_count == {'Memcpy HtoD (Pageable)': 1, 'conv': 1,
-                           'add': 3, 'Memset': 1}
+    assert tr.span_ms_per_frame(['xmem.'], 1.0) == pytest.approx(0.12)
+    assert T.breakdown(tr)['device_ops'][:2] == [
+        ['xmem.load:Memcpy HtoD (Pageable)', pytest.approx(50e-6)],
+        ['xmem.net.segment:conv', pytest.approx(40e-6)]]
+    assert [n for n, _ in T.breakdown(tr)['idle_gaps']] == [
+        'xmem.loop', S.OUTSIDE, 'xmem.call', S.OUTSIDE, 'xmem.frame']
 
 
 def test_without_spans_everything_is_outside():

@@ -1,20 +1,17 @@
-"""CPU rehearsals of the video cells at a tiny size: the driver end to end,
-the reference against the port's CPU path, the control and the faults
-that the check has to catch."""
+"""CPU rehearsals of the cells of the video driver (drivers/video.py) at
+a tiny size: the driver end to end, the reference against the port's CPU
+path, the control and the faults that the check has to catch."""
 
-import json
 import time
-from pathlib import Path
 
 import pytest
 
 from vosbench.drivers import video
+from vosbench.harness import common
 from vosbench.tests.faults import FAULTS, planted
 from vosbench.tests.tiny import args, tiny_cell
 
-BENCH = json.loads((Path(__file__).resolve().parents[2]
-                    / 'BENCHMARK.json').read_text())
-CELLS = [w['name'] for w in BENCH['workloads']]
+CELLS = common.cells('video')
 
 
 def _run(cell, seed=2 ** 33 + 7, trace=0):

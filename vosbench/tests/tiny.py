@@ -1,6 +1,7 @@
-"""Cells cut to a tiny size for rehearsals on the CPU: frames of 96x160,
-the program and the reference in float32 on the CPU (the program's plain
-kernel versions)."""
+"""Cells of the video driver (drivers/video.py) cut to a tiny size for
+rehearsals on the CPU: frames of 96x160, the program and the reference in
+float32 on the CPU (the program's plain kernel versions). A cell of
+another driver brings its own cut with its rehearsals."""
 
 import types
 

@@ -1,20 +1,24 @@
-"""Where a cell's traced video spends the card's time, by the program's own
-spans (harness/spans.py).
+"""Where a video cell's traced video spends the card's time, by the
+program's own spans (harness/spans.py).
 
     python3 vosbench/tools/spans.py --workload vos480-2obj --seed <n> \
         [--videos 3] [--out FILE]
 
-Sets up as a run does (the cell's videos and seeded weights from the seed,
-one warm-up video), then runs --videos more videos, each under the
-profiler as the traced video of a --trace 1 run is (harness/trace.py
-window, with the ranges that the cell's readers declare). Prints a JSON
-line a video: its host seconds, what the readers' Trace holds
-(harness/trace.py read and breakdown), the program's counters where it
-keeps them, and the spans' report with the self device milliseconds a
-frame of the checkpoint load ('xmem.load') and of the memory stores
-('xmem.memory.*'), and the share of the idle time outside the frame loop
-('xmem.loop'). Against a program without spans the report puts all the
-card's time outside every span. --out also writes the lines to FILE.
+Sets up as a run of the video driver does (the cell's videos and seeded
+weights from the seed, one warm-up video), then runs --videos more videos,
+each under the profiler as the traced video of a --trace 1 run is
+(harness/trace.py window, with the ranges that the cell's readers
+declare). Prints a JSON line a video: its host seconds, what the readers'
+Trace holds (harness/trace.py read and breakdown), the program's counters
+where it keeps them, the spans' report read from the same trace file, and
+for every reader of the cell that declares SPANS its value from
+Trace.spans ('span_readers') beside the self device milliseconds a frame
+of the same spans summed from the report ('report_ms_per_frame'), and the
+share of the idle time outside the frame loop ('xmem.loop'). Against a
+program without spans the report puts all the card's time outside every
+span. --out also writes the lines to FILE. Drives the video driver's own
+steps (_program_config, _one_video), so a cell of another driver is
+refused.
 """
 
 import argparse
@@ -25,6 +29,7 @@ import sys
 import tempfile
 import time
 from pathlib import Path
+from types import SimpleNamespace
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[2]))
 
@@ -47,6 +52,9 @@ def main(argv=None):
     a = p.parse_args(argv)
     common.set_environment()
     cell = common.Cell(a.workload)
+    if cell.traffic['driver'] != 'video':
+        raise SystemExit(f'{a.workload}: driver {cell.traffic["driver"]!r}; '
+                         'tools/spans.py drives the video driver alone')
     common.check_device(cell.chips)
     import torch
     from xmem2_tpu_torch.inference.run_on_video import run_on_video
@@ -60,7 +68,9 @@ def main(argv=None):
         cfg = drv._program_config(cell, ckpt)
         drv._one_video(run_on_video, videos[-1], work / 'warm', cfg, 'cuda')
         torch.cuda.synchronize()
-        declared = T.declared_ranges(cell.readers().values())
+        readers = cell.readers()
+        declared = T.declared_ranges(readers.values())
+        by_spans = {n: r for n, r in readers.items() if hasattr(r, 'SPANS')}
         for i in range(a.videos):
             path = str(work / 'trace.json')
             with T.ranges(declared), T.window(path):
@@ -77,10 +87,13 @@ def main(argv=None):
                 'busy_s': tr.busy_s, 'launches': tr.launches,
                 'range_device_s': tr.range_device_s,
                 'breakdown': T.breakdown(tr), 'counters': _counters(),
-                'load_ms_per_frame': spans.per_frame_ms(
-                    rep, ['xmem.load'], frames),
-                'memory_ms_per_frame': spans.per_frame_ms(
-                    rep, ['xmem.memory.'], frames),
+                'span_readers': {n: r.read(tr, SimpleNamespace(frames=frames))
+                                 for n, r in by_spans.items()},
+                'report_ms_per_frame': {
+                    n: 1e3 * sum(v['self_device_s'] for k, v
+                                 in rep['spans'].items()
+                                 if spans.matches(k, r.SPANS)) / frames
+                    for n, r in by_spans.items()},
                 'call_idle_share': 100.0 * rep['idle_outside_loop_s']
                 / rep['idle_s'] if rep['idle_s'] else None,
                 'spans': rep}
